@@ -19,8 +19,9 @@ rotated through copies larger than L2: what the engine pays per call),
 and ``host_ms`` (the host's time per call over 100 calls that are not
 waited for, the card running behind). With ``--engine`` it also loads the
 replay into the checkout's ``Engine``, runs ``px/service_stats`` once to
-warm up and three more times, and reports each run's seconds and
-``fold_s``, the host time of one ``batch_to_digest`` call waited for,
+warm up and three more times (as attribution runs where the checkout has
+them, so ``fold_s`` is fenced per window in every checkout), and reports
+each run's seconds and ``fold_s``, the host time of one ``batch_to_digest`` call waited for,
 and the host ops with the most self time in one run (torch.profiler).
 Each process prints one JSON line; the last line gives the median per
 checkout. Needs one CUDA card and ``nvcc``.
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -72,11 +74,16 @@ def time_engine(cs, replay, device) -> dict:
 
     eng = cs.load_engine(replay, cs.WINDOW, device)
     query = load_script("px/service_stats")
-    eng.execute_query(query)
+    # A checkout whose default query is not fenced per window keeps
+    # fold_s's meaning only in an attribution run.
+    kw = ({"analyze": True}
+          if "analyze" in inspect.signature(eng.execute_query).parameters
+          else {})
+    eng.execute_query(query, **kw)
     runs = []
     for _ in range(3):
         t0 = time.perf_counter()
-        eng.execute_query(query)
+        eng.execute_query(query, **kw)
         runs.append({"secs": time.perf_counter() - t0,
                      "fold_s": eng.last_stats.fold_s})
     with profile(activities=[ProfilerActivity.CPU,

@@ -11,7 +11,11 @@ without them. In order it:
 1. prints the card's name and power limit, builds both CUDA kernels
    from ``pixie_tpu_torch/csrc/`` (one ``nvcc`` per source, in parallel)
    and prints their registers;
-2. holds each kernel against its plain PyTorch version on the card at
+2. appends a 16M-row http_events replay (bench.py's recipe, seed 7) in
+   2^21-row batches through ``Engine.append_data``, which stages each
+   completed window onto the card (512 MiB at 32 bytes a row), and
+   checks every resident window against the replay;
+3. holds each kernel against its plain PyTorch version on the card at
    the main path's shapes (2^21-row windows; 297 dense slots padded to
    384, with and without the min, plus non-finite values; 33 groups x
    8192 histogram bins), at the edges of their designs (a ragged n,
@@ -20,11 +24,20 @@ without them. In order it:
    plain version and a PyTorch library yardstick with CUDA events, and
    all device work of one call from a torch.profiler trace, and
    profiles one t-digest window update (``batch_to_digest``) by kernel;
-3. runs px/http_stats, its FLOAT64 variant and px/service_stats through
-   ``Engine.execute_query`` over a 16M-row http_events replay (bench.py's
-   recipe, seed 7) in 2^21-row windows, checks each result against numpy
-   with bench.py's assertions, and reads the kernels' launch counters;
-4. prints one ``{"kernels": [...]}`` line and, last, the device line.
+4. the main path, the steady state: px/http_stats, its FLOAT64 variant
+   and px/service_stats through ``Engine.execute_query`` over the
+   resident windows (all 8 resident, none staged), each checked against
+   numpy with bench.py's assertions, with the kernels' launch counters
+   set to 0 before each measured query and read after it;
+5. the window path's phases, each answer checked against numpy: an
+   attribution run (read, stage, fold and finalize seconds); residency
+   off at pipeline depth 1 and 2 (the staging the prefetch thread
+   hides); the row chains px/http_errors and px/http_data in row order;
+   a tail of 2^20 + 3 appended rows (only the tail window is staged by
+   the next query); a 256 MiB device_cache_bytes budget (resident bytes
+   and the allocator's growth stay inside it); and 2^27 rows, 4 GiB
+   resident, under one px/http_stats query;
+6. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -41,6 +54,10 @@ import numpy as np
 
 ROWS = 1 << 24  # bench.py's TPU default replay size
 WINDOW = 1 << 21
+ROW_BYTES = 32  # on the card: time_, latency_ns, resp_status i64; two i32 ids
+TAIL_ROWS = (1 << 20) + 3
+EVICTION_BUDGET = 256 << 20  # half the main replay's 512 MiB
+FULL_ROWS = 1 << 27  # 4 GiB resident, inside the default 6 GiB budget
 SEED = 7
 N_SERVICES, N_PATHS = 32, 8
 
@@ -81,76 +98,140 @@ def make_replay(n: int, seed: int = SEED):
     return svc, path, lat, status
 
 
-def load_engine(replay, window: int, device):
-    from pixie_tpu_torch import Engine
+RELATION = [("time_", "TIME64NS"), ("latency_ns", "INT64"),
+            ("resp_status", "INT64"), ("service", "STRING"),
+            ("req_path", "STRING")]
+
+
+def append_replay(eng, replay, window: int, start: int = 0) -> float:
+    """Append ``replay`` to ``eng``'s http_events in ``window``-row
+    batches, ``time_`` counting from ``start``; returns the seconds the
+    appends took (with residency on, the staging of every completed
+    window included)."""
     from pixie_tpu_torch.types import DataType, HostBatch, Relation, StringDictionary
 
     svc, path, lat, status = replay
-    rel = Relation([
-        ("time_", DataType.TIME64NS),
-        ("latency_ns", DataType.INT64),
-        ("resp_status", DataType.INT64),
-        ("service", DataType.STRING),
-        ("req_path", DataType.STRING),
-    ])
+    rel = Relation([(n, getattr(DataType, t)) for n, t in RELATION])
     dicts = {
         "service": StringDictionary([f"svc-{i}" for i in range(N_SERVICES)]),
         "req_path": StringDictionary([f"/api/v1/ep{i}" for i in range(N_PATHS)]),
     }
-    eng = Engine(window_rows=window, device=device)
-    eng.create_table("http_events")
     n = len(svc)
+    t0 = time.perf_counter()
     for off in range(0, n, window):
         s = slice(off, min(off + window, n))
         m = s.stop - s.start
         eng.append_data("http_events", HostBatch(relation=rel, cols={
-            "time_": (np.arange(off, off + m, dtype=np.int64),),
+            "time_": (np.arange(start + off, start + off + m, dtype=np.int64),),
             "latency_ns": (lat[s],),
             "resp_status": (status[s],),
             "service": (svc[s],),
             "req_path": (path[s],),
         }, length=m, dicts=dicts))
+    return time.perf_counter() - t0
+
+
+def load_engine(replay, window: int, device, **engine_kw):
+    """An Engine holding the replay as http_events (created through the
+    engine, so it stages at ``window`` rows onto ``device``)."""
+    from pixie_tpu_torch import Engine
+
+    eng = Engine(window_rows=window, device=device, **engine_kw)
+    eng.create_table("http_events")
+    eng.append_secs = append_replay(eng, replay, window)
     return eng
 
 
-# -- result checks (bench.py:547-551 and :580-583) ----------------------------
-def check_http_stats(out, replay, float64: bool) -> None:
+# -- result checks (bench.py's assertions, on dense keys) ----------------------
+def expect_http_stats(replay, float64: bool) -> dict:
+    """count, mean and max of latency per (service, path) over rows with
+    status < 400, keyed service x N_PATHS + path."""
     svc, path, lat, status = replay
     ok = status < 400
-    key = svc[ok].astype(np.int64) * 64 + path[ok]
-    uniq, inv = np.unique(key, return_inverse=True)
-    cnt = np.bincount(inv)
+    key = svc[ok].astype(np.int64) * N_PATHS + path[ok]
+    g = N_SERVICES * N_PATHS
     if float64:
         vals = lat[ok].astype(np.float32) / np.float32(1e6)
-        mx = np.full(len(uniq), -np.inf, dtype=np.float32)
+        mx = np.full(g, -np.inf, dtype=np.float32)
     else:
         vals = lat[ok]
-        mx = np.full(len(uniq), np.iinfo(np.int64).min, dtype=np.int64)
-    mean = np.bincount(inv, weights=vals.astype(np.float64)) / cnt
-    np.maximum.at(mx, inv, vals)
+        mx = np.full(g, np.iinfo(np.int64).min, dtype=np.int64)
+    cnt = np.bincount(key, minlength=g)
+    mean = np.bincount(key, weights=vals.astype(np.float64), minlength=g)
+    np.maximum.at(mx, key, vals)
+    live = cnt > 0
+    return {"key": np.flatnonzero(live), "n": cnt[live],
+            "mean": mean[live] / cnt[live], "max": mx[live]}
+
+
+def check_http_stats(out, want: dict) -> None:
     got = out.to_pydict(decode_strings=False)
-    gkey = got["service"].astype(np.int64) * 64 + got["req_path"]
+    gkey = got["service"].astype(np.int64) * N_PATHS + got["req_path"]
     order = np.argsort(gkey)
-    assert np.array_equal(uniq, gkey[order]), "http_stats keys mismatch"
-    assert np.array_equal(got["n"][order], cnt), "http_stats counts mismatch"
-    np.testing.assert_allclose(got["lat_mean"][order], mean, rtol=1e-5)
-    np.testing.assert_array_equal(got["lat_max"][order], mx)
+    assert np.array_equal(want["key"], gkey[order]), "http_stats keys mismatch"
+    assert np.array_equal(got["n"][order], want["n"]), "http_stats counts mismatch"
+    np.testing.assert_allclose(got["lat_mean"][order], want["mean"], rtol=1e-5)
+    np.testing.assert_array_equal(got["lat_max"][order], want["max"])
 
 
-def check_service_stats(out, replay) -> None:
+def expect_service_stats(replay) -> dict:
     svc, _path, lat, status = replay
+    out = {}
+    for s in range(N_SERVICES):
+        m = svc == s
+        r50, r99 = np.quantile(lat[m], [0.5, 0.99])
+        out[s] = (r50, r99, float(np.mean(status[m] >= 400)), int(m.sum()))
+    return out
+
+
+def check_service_stats(out, want: dict) -> None:
     got = out.to_pydict(decode_strings=False)
     assert len(got["service"]) == N_SERVICES, "service_stats group count"
     for s, p50, p99, err, thr in zip(
         got["service"], got["p50"], got["p99"], got["error_rate"],
         got["throughput"],
     ):
-        m = svc == s
-        r50, r99 = np.quantile(lat[m], [0.5, 0.99])
+        r50, r99, rerr, rthr = want[int(s)]
         assert abs(p50 - r50) / r50 < 0.15, f"p50 off: {p50} vs {r50}"
         assert abs(p99 - r99) / r99 < 0.15, f"p99 off: {p99} vs {r99}"
-        np.testing.assert_allclose(err, np.mean(status[m] >= 400), rtol=1e-4)
-        assert thr == int(m.sum()), f"throughput {thr} vs {int(m.sum())}"
+        np.testing.assert_allclose(err, rerr, rtol=1e-4)
+        assert thr == rthr, f"throughput {thr} vs {rthr}"
+
+
+def check_rows(out, replay, idx, cols) -> None:
+    """A row chain's answer: the replay's rows ``idx``, in row order."""
+    svc, path, lat, status = replay
+    want = {"time_": idx.astype(np.int64), "latency_ns": lat[idx],
+            "resp_status": status[idx], "service": svc[idx],
+            "req_path": path[idx]}
+    got = out.to_pydict(decode_strings=False)
+    assert list(got) == list(cols), f"row columns {list(got)} vs {cols}"
+    assert out.length == len(idx), f"{out.length} rows vs {len(idx)}"
+    for c in cols:
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+
+
+def check_resident_windows(table, replay) -> None:
+    """Every window staged at append time (through two pinned buffers
+    reused back to back, copies in flight) holds the replay's rows,
+    read on the consumer's stream after its hand-off."""
+    import torch
+
+    svc, path, lat, status = replay
+    cache = table._device_cache
+    keys = sorted(cache.keys())
+    assert len(keys) == ROWS // WINDOW, keys
+    for key in keys:
+        win = cache.get(key)
+        win.handoff()
+        s = slice(win.row0, win.row0 + win.n)
+        for col, want in (("latency_ns", lat[s]), ("resp_status", status[s]),
+                          ("service", svc[s]), ("req_path", path[s]),
+                          ("time_", np.arange(s.start, s.stop))):
+            got = win.cols[col][0][:win.n]
+            ok = torch.equal(got, torch.from_numpy(
+                np.ascontiguousarray(want)).to(got.device, got.dtype))
+            assert ok, f"resident window {key} column {col} differs"
 
 
 # -- kernel checks ------------------------------------------------------------
@@ -509,60 +590,290 @@ def _bound(bytes_moved: int, ops: int) -> dict:
     }
 
 
-# -- the main path --------------------------------------------------------------
-def run_scripts(eng, replay, rows: int) -> dict:
-    """Each script: one warm-up run, then the launch counters set to 0,
-    one measured run, the counters read, the result checked."""
-    from pixie_tpu_torch.ops.dense_fold import dense_fold
-    from pixie_tpu_torch.ops.hist_fold import hist_fold
+# -- the main path and the window path's phases ---------------------------------
+AGG_SCRIPTS = ("px/http_stats", "http_stats_float64", "px/service_stats")
+
+
+class Expect:
+    """numpy's answer to each aggregate script over one replay, computed
+    once and checked against every phase that runs the script."""
+
+    def __init__(self, replay):
+        self.replay = replay
+        self._cache = {}
+
+    def check(self, name: str, out) -> None:
+        if name not in self._cache:
+            self._cache[name] = (
+                expect_service_stats(self.replay) if name == "px/service_stats"
+                else expect_http_stats(self.replay,
+                                       float64=name == "http_stats_float64"))
+        want = self._cache[name]
+        if name == "px/service_stats":
+            check_service_stats(out, want)
+        else:
+            check_http_stats(out, want)
+
+
+def query_text(name: str) -> str:
     from pixie_tpu_torch.scripts import load_script
 
-    scripts = [
-        ("px/http_stats", load_script("px/http_stats"),
-         lambda o: check_http_stats(o, replay, float64=False)),
-        ("http_stats_float64", HTTP_STATS_F64,
-         lambda o: check_http_stats(o, replay, float64=True)),
-        ("px/service_stats", load_script("px/service_stats"),
-         lambda o: check_service_stats(o, replay)),
-    ]
-    launches = {}
-    for name, query, check in scripts:
-        eng.execute_query(query)  # ends in a device -> host read
-        dense_fold.launches = 0
-        hist_fold.launches = 0
-        t0 = time.perf_counter()
-        out = eng.execute_query(query)["output"]
-        secs = time.perf_counter() - t0
-        counts = {"dense_fold": dense_fold.launches,
-                  "hist_fold": hist_fold.launches}
-        st = eng.last_stats
-        check(out)
-        launches[name] = (counts, st.windows)
-        print(json.dumps({
-            "script": name, "rows": st.rows, "windows": st.windows,
-            "secs": secs, "rows_per_s": rows / secs, "read_s": st.read_s,
-            "stage_s": st.stage_s, "fold_s": st.fold_s,
-            "finalize_s": st.finalize_s, "launches": counts, "checked": True,
-        }))
-    counts, windows = launches["http_stats_float64"]
-    assert counts["dense_fold"] >= windows, (
-        f"dense_fold ran {counts['dense_fold']} times over {windows} windows")
-    counts, windows = launches["px/service_stats"]
-    assert counts["hist_fold"] >= 2 * windows, (
-        f"hist_fold ran {counts['hist_fold']} times over {windows} windows")
+    return HTTP_STATS_F64 if name == "http_stats_float64" else load_script(name)
+
+
+def run_checked(eng, name: str, expect: Expect, **kw) -> dict:
+    """One query, checked against numpy; its counters and host times."""
+    t0 = time.perf_counter()
+    out = eng.execute_query(query_text(name), **kw)["output"]
+    secs = time.perf_counter() - t0
+    st = eng.last_stats
+    expect.check(name, out)
     return {
-        "dense_fold": launches["http_stats_float64"][0]["dense_fold"],
-        "hist_fold": launches["px/service_stats"][0]["hist_fold"],
+        "script": name, "rows": st.rows, "windows": st.windows,
+        "secs": secs, "rows_per_s": st.rows / secs,
+        "resident_windows": st.resident_windows,
+        "staged_windows": st.staged_windows,
+        "skipped_windows": st.skipped_windows,
+        "pipeline": dict(st.pipeline), "checked": True,
     }
 
 
+def phase_steady_state(eng, expect: Expect) -> dict:
+    """The main path: each aggregate script over resident windows, one
+    warm-up query, then the launch counters set to 0, one measured
+    query, the counters read. Every window must be resident."""
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    launches = {}
+    for name in AGG_SCRIPTS:
+        eng.execute_query(query_text(name))
+        dense_fold.launches = 0
+        hist_fold.launches = 0
+        rec = run_checked(eng, name, expect)
+        rec["launches"] = {"dense_fold": dense_fold.launches,
+                           "hist_fold": hist_fold.launches}
+        launches[name] = rec["launches"]
+        print(json.dumps({"phase": "steady_state", **rec}))
+        windows = rec["windows"]
+        assert (rec["resident_windows"], rec["staged_windows"]) == (windows, 0), (
+            f"{name}: {rec['resident_windows']} resident / "
+            f"{rec['staged_windows']} staged of {windows} windows")
+        print(json.dumps({"phase": "steady_state_turns", "script": name,
+                          **depth_turns(eng, name), **device_busy(eng, name)}))
+    counts = launches["http_stats_float64"]
+    assert counts["dense_fold"] == ROWS // WINDOW, (
+        f"dense_fold ran {counts['dense_fold']} times per query")
+    counts = launches["px/service_stats"]
+    assert counts["hist_fold"] == 2 * ROWS // WINDOW, (
+        f"hist_fold ran {counts['hist_fold']} times per query")
+    return {
+        "dense_fold": launches["http_stats_float64"]["dense_fold"],
+        "hist_fold": launches["px/service_stats"]["hist_fold"],
+    }
+
+
+def depth_turns(eng, name: str) -> dict:
+    """Seconds per query at pipeline depth 2 and 1 over resident
+    windows, in turns 2, 1, 1, 2, 2, 1 (medians)."""
+    saved = eng.pipeline_depth
+    secs = {1: [], 2: []}
+    try:
+        for depth in (2, 1, 1, 2, 2, 1):
+            eng.pipeline_depth = depth
+            t0 = time.perf_counter()
+            eng.execute_query(query_text(name))
+            secs[depth].append(time.perf_counter() - t0)
+    finally:
+        eng.pipeline_depth = saved
+    return {"depth2_secs": float(np.median(secs[2])),
+            "depth1_secs": float(np.median(secs[1])),
+            "turns": {str(d): v for d, v in secs.items()}}
+
+
+def device_busy(eng, name: str) -> dict:
+    """One query under torch.profiler: the device time of its kernels,
+    copies and memsets against its wall time; the rest is the share of
+    the query the card sat idle (the profiler's own host cost adds to
+    the wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.execute_query(query_text(name))
+        wall = time.perf_counter() - t0
+    busy_us = sum(
+        getattr(e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))
+        for e in prof.key_averages()
+    )
+    torch.cuda.synchronize()
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall)}
+
+
+def phase_attribution(eng, expect: Expect) -> None:
+    """An attribution run (serial, the card fenced after each stage):
+    where a resident query's time goes."""
+    for name in AGG_SCRIPTS:
+        rec = run_checked(eng, name, expect, analyze=True)
+        st = eng.last_stats
+        print(json.dumps({"phase": "attribution", **rec,
+                          "read_s": st.read_s, "stage_s": st.stage_s,
+                          "fold_s": st.fold_s, "finalize_s": st.finalize_s}))
+
+
+def phase_host_staged(replay, expect: Expect, device) -> None:
+    """Residency off: the same replay appended with nothing staged, then
+    each script at pipeline depth 1 and 2. stage_secs is the prefetch
+    producer's staging time, stall_secs the consumer's wait for it; the
+    share of staging hidden behind the fold is 1 - stall / stage
+    (bench.py's ``_pipeline_ab``)."""
+    from pixie_tpu_torch.config import clear_flag, set_flag
+
+    set_flag("device_residency", False)
+    try:
+        eng = load_engine(replay, WINDOW, device)
+        print(json.dumps({"phase": "append", "residency": False,
+                          "rows": ROWS, "secs": eng.append_secs,
+                          "resident_bytes": eng.tables["http_events"].resident_bytes}))
+        assert eng.tables["http_events"].resident_bytes == 0
+        for name in AGG_SCRIPTS:
+            rec = run_checked(eng, name, expect, analyze=True)
+            st = eng.last_stats
+            print(json.dumps({"phase": "host_staged_attribution", **rec,
+                              "read_s": st.read_s, "stage_s": st.stage_s,
+                              "fold_s": st.fold_s,
+                              "finalize_s": st.finalize_s}))
+        for name in AGG_SCRIPTS:
+            eng.pipeline_depth = 1
+            eng.execute_query(query_text(name))  # warm-up
+            recs = {}
+            for depth in (1, 2, 2, 1):
+                eng.pipeline_depth = depth
+                rec = run_checked(eng, name, expect)
+                assert rec["staged_windows"] == rec["windows"]
+                recs.setdefault(depth, []).append(rec)
+            for depth, rs in recs.items():
+                stage = sum(r["pipeline"]["stage_secs"] for r in rs)
+                stall = sum(r["pipeline"]["stall_secs"] for r in rs)
+                print(json.dumps({
+                    "phase": "host_staged", "script": name, "depth": depth,
+                    "secs": [r["secs"] for r in rs],
+                    "rows_per_s": [r["rows_per_s"] for r in rs],
+                    "stage_secs": [r["pipeline"]["stage_secs"] for r in rs],
+                    "stall_secs": [r["pipeline"]["stall_secs"] for r in rs],
+                    "hidden_share": (max(0.0, min(1.0, 1.0 - stall / stage))
+                                     if depth > 1 and stage > 0 else None),
+                    "checked": True,
+                }))
+    finally:
+        clear_flag("device_residency")
+
+
+def phase_row_chains(eng, replay) -> None:
+    """The raw-row scripts over resident windows, against numpy in row
+    order: each stops at its limit after the first window."""
+    from pixie_tpu_torch.scripts import load_script
+
+    _svc, _path, lat, status = replay
+    cases = {
+        "px/http_errors": (np.flatnonzero(status >= 400)[:100],
+                           ["time_", "service", "req_path", "resp_status",
+                            "latency_ns"]),
+        "px/http_data": (np.arange(128), [n for n, _t in RELATION]),
+    }
+    for name, (idx, cols) in cases.items():
+        eng.execute_query(load_script(name))
+        t0 = time.perf_counter()
+        out = eng.execute_query(load_script(name))["output"]
+        secs = time.perf_counter() - t0
+        check_rows(out, replay, idx, cols)
+        st = eng.last_stats
+        print(json.dumps({"phase": "row_chains", "script": name,
+                          "rows_out": out.length, "secs": secs,
+                          "windows": st.windows,
+                          "resident_windows": st.resident_windows,
+                          "staged_windows": st.staged_windows,
+                          "pipeline": st.pipeline, "checked": True}))
+
+
+def phase_tail(eng, replay) -> None:
+    """Append 2^20 + 3 rows, then query: only the new tail window is
+    staged by the query; the next query finds it resident too."""
+    extra = make_replay(TAIL_ROWS, seed=SEED + 1)
+    secs = append_replay(eng, extra, WINDOW, start=ROWS)
+    both = tuple(np.concatenate([a, b]) for a, b in zip(replay, extra))
+    expect = Expect(both)
+    first = run_checked(eng, "px/http_stats", expect)
+    second = run_checked(eng, "px/http_stats", expect)
+    print(json.dumps({"phase": "tail", "appended_rows": len(extra[0]),
+                      "append_secs": secs, "first": first, "second": second}))
+    windows = ROWS // WINDOW + 1
+    assert (first["resident_windows"], first["staged_windows"]) == (windows - 1, 1)
+    assert (second["resident_windows"], second["staged_windows"]) == (windows, 0)
+
+
+def phase_eviction(replay, expect: Expect, device) -> None:
+    """device_cache_bytes = 256 MiB under a 512 MiB table: the answers
+    hold, and neither the caches' bytes nor the allocator's growth ever
+    exceed the budget (plus one window in flight)."""
+    import torch
+    from pixie_tpu_torch.config import clear_flag, set_flag
+    from pixie_tpu_torch.table_store.device_cache import total_resident_bytes
+
+    budget = EVICTION_BUDGET
+    window_bytes = WINDOW * ROW_BYTES
+    set_flag("device_cache_bytes", budget)
+    try:
+        base = torch.cuda.memory_allocated(device)
+        eng = load_engine(replay, WINDOW, device)
+        peaks = [total_resident_bytes()]
+        alloc = [torch.cuda.memory_allocated(device) - base]
+        recs = []
+        for name in AGG_SCRIPTS:
+            recs.append(run_checked(eng, name, expect))
+            peaks.append(total_resident_bytes())
+            alloc.append(torch.cuda.memory_allocated(device) - base)
+        print(json.dumps({"phase": "eviction", "budget": budget,
+                          "append_secs": eng.append_secs,
+                          "resident_bytes": peaks,
+                          "allocated_over_base": alloc, "queries": recs}))
+        assert max(peaks) <= budget, f"resident {max(peaks)} > {budget}"
+        assert max(alloc) <= budget + window_bytes, (
+            f"allocated {max(alloc)} over the base > budget + one window")
+    finally:
+        clear_flag("device_cache_bytes")
+
+
+def phase_full_budget(device) -> None:
+    """2^27 rows, 4 GiB resident inside the default 6 GiB budget: one
+    px/http_stats query checked against numpy, after one warm-up."""
+    rows = FULL_ROWS
+    replay = make_replay(rows, seed=SEED + 2)
+    eng = load_engine(replay, WINDOW, device)
+    t = eng.tables["http_events"]
+    assert t.resident_bytes == rows * ROW_BYTES, t.resident_bytes
+    expect = Expect(replay)
+    eng.execute_query(query_text("px/http_stats"))
+    rec = run_checked(eng, "px/http_stats", expect)
+    print(json.dumps({"phase": "full_budget", "rows": rows,
+                      "append_secs": eng.append_secs,
+                      "resident_bytes": t.resident_bytes, **rec}))
+    assert (rec["resident_windows"], rec["staged_windows"]) == (rows // WINDOW, 0)
+
+
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pixie_tpu_torch.config import clear_flag, set_flag
     from pixie_tpu_torch.ops import cuda_lib
 
     device = torch.device("cuda", torch.cuda.current_device())
@@ -579,10 +890,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    t0 = time.perf_counter()
     replay = make_replay(ROWS)
+    expect = Expect(replay)
     eng = load_engine(replay, WINDOW, device)
-    print(f"replay: {ROWS} rows appended in {time.perf_counter() - t0:.2f} s")
+    table = eng.tables["http_events"]
+    print(json.dumps({"phase": "append", "residency": True, "rows": ROWS,
+                      "secs": eng.append_secs,
+                      "resident_bytes": table.resident_bytes,
+                      "allocated": torch.cuda.memory_allocated(device)}))
+    assert table.resident_bytes == ROWS * ROW_BYTES, table.resident_bytes
+    check_resident_windows(table, replay)
+    set_flag("ingest_sketches", False)
+    try:
+        secs = load_engine(replay, WINDOW, device).append_secs
+    finally:
+        clear_flag("ingest_sketches")
+    gc.collect()
+    print(json.dumps({"phase": "append", "residency": True,
+                      "ingest_sketches": False, "rows": ROWS, "secs": secs}))
 
     kernels = [check_dense_fold(replay, device), check_hist_fold(replay, device)]
     for k in kernels:
@@ -598,9 +923,19 @@ def main() -> int:
 
     print(json.dumps({"batch_to_digest": profile_digest(replay, device)}))
 
-    launches = run_scripts(eng, replay, ROWS)
+    launches = phase_steady_state(eng, expect)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    phase_attribution(eng, expect)
+    phase_host_staged(replay, expect, device)
+    phase_row_chains(eng, replay)
+    phase_tail(eng, replay)
+    del eng, table
+    gc.collect()
+    phase_eviction(replay, expect, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_full_budget(device)
 
     print(card)  # nvidia-smi's "name, power.limit" line, as it gave it
     print(json.dumps({"kernels": kernels}))

@@ -1,34 +1,44 @@
 """Query engine: PxL script -> plan -> windowed fold on the device.
 
-A port of the single-engine main path of the JAX package's
-``exec/engine.py`` (``Engine.execute_query``): compile the script, read
-the source table's windows from the table store, copy each window to the
-device, fold it into the fragment's group state, and finalize the state
-into a host ``HostBatch``. Windows run serially.
+A port of the single-engine path of the JAX package's ``exec/engine.py``
+(``Engine.execute_query``): compile the script, stream the source
+table's windows through the fragment, and finalize into a host
+``HostBatch``.
+
+Windows come from the table's device-resident cache when
+``device_residency`` is on (staged at append time; misses such as the
+partial tail are staged on demand), else from the host ring through
+``HostBatch.to_device``. Either way they pass through a
+``WindowPipeline`` (``pipeline_depth`` windows in flight on a prefetch
+thread) after zone-map pruning (``exec/zoneskip.py``). The default run
+never fences the card per window: the result's read at the end is the
+query's only wait for the device. An attribution run
+(``execute_query(..., analyze=True)``) runs serially and fences after
+each stage, so ``read_s``, ``stage_s``, ``fold_s`` and ``finalize_s``
+hold that stage's device work.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card it raises rather than carrying on on the CPU. The result
-cache, views, the window pipeline, joins, unions, the native CPU fold and
+without a card it raises rather than carrying on on the CPU. Not ported
+here: the TPU's scan batching of resident windows (``update_all``,
+which amortises TPU dispatch cost) and the native multi-core CPU fold
+(for the XLA:CPU backend); the result cache, views, joins, unions and
 streaming are later slices of the port.
 """
 
 from __future__ import annotations
 
-import json
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..config import get_flag
 from ..types.batch import HostBatch, bucket_capacity
-from ..types.dtypes import DataType, host_dtypes
-from ..types.relation import Relation
-from ..types.strings import StringDictionary
 from ..udf.registry import Registry, default_registry
 from .fragment import compile_fragment
+from .pipeline import WindowPipeline
 from .plan import (
     AggOp,
     ColumnRef,
@@ -38,10 +48,20 @@ from .plan import (
     MemorySourceOp,
     ResultSinkOp,
 )
+from .stream import (
+    QueryCancelled,
+    QueryError,
+    _apply_limit,
+    _block_if,
+    _concat_host,
+    _Stream,
+    _stream_col_stats,
+    _timed,
+    _to_host_batch,
+)
+from .zoneskip import chain_pruner
 
-
-class QueryError(Exception):
-    pass
+__all__ = ["Engine", "QueryCancelled", "QueryError", "QueryStats", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,114 +81,88 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-@dataclass
-class _Stream:
-    """A table source plus the chain of fragment ops accumulated so far."""
-
-    relation: Relation
-    dicts: dict
-    chain: list
-    tables: list
-    source_op: MemorySourceOp
-
-    def extend(self, op) -> "_Stream":
-        return _Stream(
-            self.relation, self.dicts, self.chain + [op], self.tables,
-            self.source_op,
-        )
-
-
-def _stream_col_stats(stream: _Stream):
-    """Merged per-column (min, max) bounds across the source tablets."""
-    merged: dict | None = None
-    for t in stream.tables:
-        ts = t.col_stats
-        if not ts:
-            continue  # empty tablet: contributes no rows
-        if merged is None:
-            merged = dict(ts)
-        else:
-            merged = {
-                c: (min(merged[c][0], ts[c][0]), max(merged[c][1], ts[c][1]))
-                for c in merged.keys() & ts.keys()
-            }
-    return merged or None
-
-
-def _to_host_batch(meta_list, cols, valid) -> HostBatch:
-    idx = torch.nonzero(valid).flatten().cpu().numpy()
-    out_cols: dict = {}
-    dicts: dict = {}
-    rel_items = []
-    for m in meta_list:
-        if m.struct_fields is not None:
-            planes = cols[m.name][0].cpu().numpy()[idx]  # [rows, k] floats
-            d = StringDictionary()
-            ids = np.fromiter(
-                (
-                    d.get_or_add(json.dumps({
-                        f: round(float(v), 6) for f, v in zip(m.struct_fields, row)
-                    }))
-                    for row in planes
-                ),
-                dtype=np.int32,
-                count=len(planes),
-            )
-            out_cols[m.name] = (ids,)
-            dicts[m.name] = d
-            rel_items.append((m.name, DataType.STRING))
-            continue
-        out_cols[m.name] = tuple(
-            p.cpu().numpy()[idx].astype(h)
-            for p, h in zip(cols[m.name], host_dtypes(m.dtype))
-        )
-        if m.dict is not None:
-            dicts[m.name] = m.dict
-        rel_items.append((m.name, m.dtype))
-    return HostBatch(
-        relation=Relation(rel_items), cols=out_cols, length=len(idx), dicts=dicts
-    )
-
-
-def _apply_limit(hb: HostBatch, limit) -> HostBatch:
-    if limit is None or hb.length <= limit:
-        return hb
-    return HostBatch(
-        relation=hb.relation,
-        cols={n: tuple(p[:limit] for p in ps) for n, ps in hb.cols.items()},
-        length=limit,
-        dicts=hb.dicts,
-    )
+# Stage names -> the QueryStats field that sums their seconds, and event
+# names -> the field that counts them.
+_SECONDS = {
+    "read": "read_s", "stage": "stage_s", "compute": "fold_s",
+    "finalize": "finalize_s", "materialize": "finalize_s",
+}
+_COUNTS = {
+    "skip": "skipped_windows", "resident": "resident_windows",
+    "staged": "staged_windows",
+}
 
 
 @dataclass
 class QueryStats:
-    """Where one query's time went, on the host clock. Each window's
-    device work is synchronised before the next window is read, so
-    ``read_s`` (window reads from the table store), ``stage_s`` (padding
-    and the host -> device copy) and ``fold_s`` (filter, maps and UDA
-    folds) do not overlap."""
+    """One query's counters and stage times, on the host clock.
 
+    - ``wall_s``: the plan's execution, to the host result;
+    - ``windows`` / ``rows``: windows folded and rows in them;
+    - ``resident_windows``: windows served from the device cache;
+      ``staged_windows``: windows copied from the host by this query
+      (cache misses, or every window with ``device_residency`` off);
+      ``skipped_windows``: windows pruned by their zone maps, never
+      staged;
+    - ``pipeline``: the window pipeline's counters (depth, windows,
+      stage_secs, stall_secs);
+    - ``read_s`` (host ring reads), ``stage_s`` (pad, copy, or the
+      cache probe for resident windows), ``fold_s`` (filter, maps, UDA
+      folds) and ``finalize_s`` (finalize and result assembly): with
+      ``sync`` (an attribution run) each stage is fenced and the stages
+      do not overlap; otherwise they are host enqueue times, and the
+      stages of two windows overlap on the prefetch thread.
+    """
+
+    sync: bool = False
+    wall_s: float = 0.0
     rows: int = 0
     windows: int = 0
+    resident_windows: int = 0
+    staged_windows: int = 0
+    skipped_windows: int = 0
     read_s: float = 0.0
     stage_s: float = 0.0
     fold_s: float = 0.0
     finalize_s: float = 0.0
+    pipeline: dict = field(default_factory=lambda: {
+        "depth": 0, "windows": 0, "stage_secs": 0.0, "stall_secs": 0.0,
+    })
     fragments: list = field(default_factory=list)  # CompiledFragment per run
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def add(self, stage: str, secs: float = 0.0) -> None:
+        """Charge ``secs`` to a stage, or count one event ("skip",
+        "resident", "staged"). Called from the pipeline's producer
+        thread too, hence the lock."""
+        with self._lock:
+            if stage in _COUNTS:
+                name = _COUNTS[stage]
+                setattr(self, name, getattr(self, name) + 1)
+            else:
+                name = _SECONDS[stage]
+                setattr(self, name, getattr(self, name) + secs)
 
 
 class Engine:
     """Owns tables + registry; executes PxL scripts on one device."""
 
+    # Whether this engine may read device-resident table windows (with
+    # the device_residency flag); a subclass may stage every window.
+    device_residency = True
+
     def __init__(self, registry: Registry | None = None,
-                 window_rows: int | None = None, device=None):
+                 window_rows: int | None = None, device=None,
+                 pipeline_depth: int | None = None):
         from ..table_store import TableStore
 
         self.device = resolve_device(device)
         self.registry = registry or default_registry()
         self.table_store = TableStore()
         self.window_rows = int(window_rows or get_flag("window_rows"))
+        # Window-executor prefetch depth (pipeline.py); None reads the
+        # pipeline_depth flag per query.
+        self.pipeline_depth = pipeline_depth
         self.last_stats: Optional[QueryStats] = None
 
     @property
@@ -183,17 +177,32 @@ class Engine:
             out[n] = t
         return out
 
-    def create_table(self, name: str, relation: Relation | None = None,
-                     max_bytes: int = -1):
-        return self.table_store.add_table(name, relation, max_bytes=max_bytes)
+    # -- table management ----------------------------------------------------
+    def create_table(self, name: str, relation=None, max_bytes: int = -1):
+        """Tables created through an engine stage device windows on its
+        device at its window size from the first append on."""
+        return self.table_store.add_table(
+            name, relation, max_bytes=max_bytes,
+            device_window_rows=self.window_rows, device=self.device,
+        )
 
     def append_data(self, name: str, data, time_cols=("time_",)):
+        """Push path (Stirling's RegisterDataPushCallback analog). The
+        atomic get-or-create sets this engine's window size and device,
+        so first appends stage device windows correctly."""
+        self.table_store.ensure_table(
+            name, device_window_rows=self.window_rows, device=self.device
+        )
         return self.table_store.append_data(name, data, time_cols=time_cols)
 
+    # -- execution -----------------------------------------------------------
     def execute_query(self, query: str, now_ns: int = 0,
-                      max_output_rows: int = 10_000) -> dict:
+                      max_output_rows: int = 10_000, analyze: bool = False,
+                      cancel=None) -> dict:
         """Compile a PxL script and execute it. Returns {output name:
-        HostBatch}; ``last_stats`` says where the time went."""
+        HostBatch}; ``last_stats`` holds the query's counters.
+        ``analyze=True`` is an attribution run (serial, fenced per
+        stage); ``cancel`` is an Event-like handle polled per window."""
         from ..planner import CompilerState, compile_pxl
 
         state = CompilerState(
@@ -203,10 +212,18 @@ class Engine:
             max_output_rows=max_output_rows,
         )
         compiled = compile_pxl(query, state)
-        self.last_stats = QueryStats()
-        return self._execute_plan(compiled.plan, self.last_stats)
+        return self.execute_plan(compiled.plan, analyze=analyze, cancel=cancel)
 
-    def _execute_plan(self, plan, stats: QueryStats) -> dict:
+    def execute_plan(self, plan, analyze: bool = False, cancel=None) -> dict:
+        stats = QueryStats(sync=analyze)
+        t0 = time.perf_counter()
+        try:
+            return self._execute_plan(plan, stats, cancel)
+        finally:
+            stats.wall_s = time.perf_counter() - t0
+            self.last_stats = stats
+
+    def _execute_plan(self, plan, stats: QueryStats, cancel) -> dict:
         results: dict = {}
         outputs: dict = {}
         for nid in plan.topo_order():
@@ -231,14 +248,13 @@ class Engine:
                     isinstance(op, AggOp)
                     and any(isinstance(o, AggOp) for o in st.chain)
                 ):
-                    raise NotImplementedError(
-                        "plans of several fragments are not in this slice "
-                        "of the port"
-                    )
+                    # A limit ends its fragment, and two aggregates never
+                    # share one: materialize, then chain on the result.
+                    st = self._as_stream(self._run_fragment(st, stats, cancel))
                 results[nid] = st.extend(op)
             elif isinstance(op, ResultSinkOp):
                 outputs[op.name] = self._run_fragment(
-                    results[node.inputs[0]], stats
+                    results[node.inputs[0]], stats, cancel
                 )
             else:
                 raise NotImplementedError(
@@ -246,46 +262,175 @@ class Engine:
                 )
         return outputs
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @staticmethod
+    def _as_stream(hb: HostBatch) -> _Stream:
+        return _Stream(hb.relation, dict(hb.dicts), [], hb)
 
-    def _run_fragment(self, stream: _Stream, stats: QueryStats) -> HostBatch:
+    # -- the window path -------------------------------------------------------
+    @staticmethod
+    def _check_cancel(cancel) -> None:
+        if cancel is not None and cancel.is_set():
+            raise QueryCancelled("query cancelled")
+
+    def _host_windows(self, hb: HostBatch):
+        """A materialized host batch in slices of up to ``window_rows``."""
+        for off in range(0, hb.length, self.window_rows):
+            idx = slice(off, min(off + self.window_rows, hb.length))
+            yield HostBatch(
+                relation=hb.relation,
+                cols={n: tuple(p[idx] for p in ps) for n, ps in hb.cols.items()},
+                length=idx.stop - idx.start,
+                dicts=hb.dicts,
+            )
+
+    def _staged_windows(self, stream: _Stream, stats: QueryStats, cancel):
+        """Yield (cols, valid, source) per window of the stream's source.
+
+        With ``device_residency`` on, table windows come from the device
+        cache (``Table.device_scan``) and ``valid`` is the (lo - row0,
+        hi - row0) pair of the query's live rows in the window; else
+        host windows are read from the ring (or sliced from a
+        materialized batch) and staged through ``to_device``, with a
+        mask. ``source`` is the DeviceWindow or DeviceBatch, whose
+        ``handoff`` the consumer calls before it reads the planes.
+        Zone-map pruning runs before either stages."""
+        if isinstance(stream.source, HostBatch):
+            yield from self._stage_host(
+                self._host_windows(stream.source), stats, cancel
+            )
+            return
+        sop = stream.source_op
+        for t in stream.source:
+            if t._backend is None:
+                continue
+            pruner = chain_pruner(t, stream.chain, t.dicts, stats=stats)
+            if self.device_residency and get_flag("device_residency"):
+                scan = t.device_scan(
+                    sop.start_time, sop.stop_time,
+                    window_rows=self.window_rows, prune=pruner, stats=stats,
+                )
+                while True:
+                    with _timed(stats, "stage"):
+                        item = next(scan, None)
+                        if item is not None:
+                            _block_if(stats, self.device)
+                    if item is None:
+                        break
+                    win, lo, hi = item
+                    self._check_cancel(cancel)
+                    stats.rows += hi - lo
+                    yield win.cols, (lo - win.row0, hi - win.row0), win
+                continue
+            yield from self._stage_host(
+                t.scan(sop.start_time, sop.stop_time,
+                       window_rows=self.window_rows, cols=sop.columns,
+                       prune=pruner),
+                stats, cancel,
+            )
+
+    def _stage_host(self, windows, stats: QueryStats, cancel):
+        """Stage host windows through ``to_device`` (the non-resident
+        path), timing the read and the staging apart. Each window pads to
+        its own power-of-two size: eager PyTorch has no compiled program
+        whose shape a fixed capacity would keep (the JAX engine pads to
+        the window size for its jit cache), so a small materialized
+        batch is not padded to a full window."""
+        while True:
+            with _timed(stats, "read"):
+                hb = next(windows, None)
+            if hb is None:
+                return
+            self._check_cancel(cancel)
+            with _timed(stats, "stage"):
+                db = self._stage(hb, bucket_capacity(hb.length))
+                _block_if(stats, self.device)
+            stats.add("staged")
+            stats.rows += hb.length
+            yield db.cols, db.valid, db
+
+    def _stage(self, hb: HostBatch, capacity: int):
+        """Pad a host window to capacity and place it on the device."""
+        return hb.to_device(capacity, self.device)
+
+    def _window_pipeline(self, stream: _Stream, stats: QueryStats,
+                         cancel) -> WindowPipeline:
+        """Pipelined view of ``_staged_windows``: staging of window N+1
+        runs on a prefetch thread while the caller folds window N. An
+        attribution run is serial. Callers MUST wrap iteration in
+        try/finally close()."""
+        depth = 1 if stats.sync else (
+            self.pipeline_depth or get_flag("pipeline_depth")
+        )
+        return WindowPipeline(
+            self._staged_windows(stream, stats, cancel), depth, cancel=cancel
+        )
+
+    @staticmethod
+    def _note_pipeline(pipe: WindowPipeline, stats: QueryStats) -> None:
+        """Fold a finished pipeline's counters into the query's stats (a
+        plan with an interior limit runs two pipelines)."""
+        c = pipe.counters()
+        stats.pipeline["depth"] = c["depth"]
+        for k in ("windows", "stage_secs", "stall_secs"):
+            stats.pipeline[k] += c[k]
+
+    def _fold_agg_state(self, stream: _Stream, frag, stats: QueryStats, cancel):
+        """Stream the source through the fragment's window fold, returning
+        the accumulated (unfinalized) group state. No per-window fence."""
+        state = frag.init_state()
+        pipe = self._window_pipeline(stream, stats, cancel)
+        try:
+            for cols, valid, src in pipe:
+                src.handoff()
+                with _timed(stats, "compute"):
+                    state = frag.merge_states(state, frag.window_state(cols, valid))
+                    _block_if(stats, self.device)
+                stats.windows += 1
+        finally:
+            pipe.close()
+            self._note_pipeline(pipe, stats)
+        return state
+
+    def _run_fragment(self, stream: _Stream, stats: QueryStats,
+                      cancel) -> HostBatch:
         frag = compile_fragment(
             stream.chain, stream.relation, stream.dicts, self.registry,
             self.device, col_stats=_stream_col_stats(stream),
         )
         stats.fragments.append(frag)
-        sop = stream.source_op
-        state = frag.init_state()
-        for t in stream.tables:
-            windows = t.scan(sop.start_time, sop.stop_time,
-                             window_rows=self.window_rows, cols=sop.columns)
-            while True:
-                t0 = time.perf_counter()
-                hb = next(windows, None)
-                if hb is None:
-                    break
-                t1 = time.perf_counter()
-                cap = max(bucket_capacity(self.window_rows),
-                          bucket_capacity(hb.length))
-                db = hb.to_device(cap, self.device)
-                self._sync()
-                t2 = time.perf_counter()
-                state = frag.merge_states(state, frag.window_state(db.cols, db.valid))
-                self._sync()
-                stats.read_s += t1 - t0
-                stats.stage_s += t2 - t1
-                stats.fold_s += time.perf_counter() - t2
-                stats.rows += hb.length
+        if frag.is_agg:
+            state = self._fold_agg_state(stream, frag, stats, cancel)
+            with _timed(stats, "finalize"):
+                out_cols, valid, overflow = frag.finalize(state)
+                if bool(overflow):
+                    raise QueryError(
+                        "rows escaped the group keys' dense domain (rows "
+                        "appended while the query ran); run the query again"
+                    )
+                out = _to_host_batch(frag.out_meta, out_cols, valid)
+            return _apply_limit(out, frag.limit)
+
+        # Rows: each window's surviving rows to the host, stopping early
+        # once the limit is met.
+        pieces, total = [], 0
+        pipe = self._window_pipeline(stream, stats, cancel)
+        try:
+            for cols, valid, src in pipe:
+                src.handoff()
+                with _timed(stats, "compute"):
+                    out_cols, out_valid = frag.update(cols, valid)
+                    _block_if(stats, self.device)
                 stats.windows += 1
-        t0 = time.perf_counter()
-        out_cols, valid, overflow = frag.finalize(state)
-        if bool(overflow):
-            raise QueryError(
-                "rows escaped the group keys' dense domain (rows appended "
-                "while the query ran); run the query again"
-            )
-        out = _to_host_batch(frag.out_meta, out_cols, valid)
-        stats.finalize_s += time.perf_counter() - t0
-        return _apply_limit(out, frag.limit)
+                with _timed(stats, "materialize"):
+                    piece = _to_host_batch(
+                        frag.out_meta, out_cols, out_valid,
+                        None if frag.limit is None else frag.limit - total,
+                    )
+                pieces.append(piece)
+                total += piece.length
+                if frag.limit is not None and total >= frag.limit:
+                    break
+        finally:
+            pipe.close()
+            self._note_pipeline(pipe, stats)
+        return _apply_limit(_concat_host(pieces, frag.relation), frag.limit)

@@ -9,10 +9,15 @@ A chain {Map/Filter -> Agg -> Map/Filter -> Limit} becomes:
 - ``merge_states(a, b)``: the slot-aligned associative merge;
 - ``finalize(state)``: UDA finalize + post-agg ops -> output columns.
 
-PyTorch runs eagerly, so there is no compile cache. Group keys whose
-domain is not known statically (the sort/hash regroup of the JAX
-package's ``ops/groupby.py``) and chains without an aggregate are a
-later slice of the port.
+A chain without an aggregate {Map/Filter... -> Limit} becomes a rows
+fragment: ``update(cols, valid)`` applies the filter, maps and
+projection to one window and returns its planes and validity mask.
+
+``valid`` is a bool mask or, for a device-resident window, a (lo, hi)
+row pair that the fragment turns into the mask on the device
+(``_range_valid``). PyTorch runs eagerly, so there is no compile cache.
+Group keys whose domain is not known statically (the sort/hash regroup
+of the JAX package's ``ops/groupby.py``) are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -51,13 +56,28 @@ class ColumnMeta:
 class CompiledFragment:
     relation: Relation  # output relation
     out_meta: list  # list[ColumnMeta] incl. struct columns
-    init_state: object  # () -> group state
-    window_state: object  # (cols, valid) -> per-window group state
-    merge_states: object  # (state_a, state_b) -> merged state
-    finalize: object  # state -> (cols, valid, overflow)
+    is_agg: bool = True
+    init_state: object = None  # () -> group state
+    window_state: object = None  # (cols, valid) -> per-window group state
+    merge_states: object = None  # (state_a, state_b) -> merged state
+    finalize: object = None  # state -> (cols, valid, overflow)
+    update: object = None  # rows fragment: (cols, valid) -> (cols, valid)
     limit: Optional[int] = None  # host-enforced row cap
     # True when the aggregates fold through the dense_fold kernel.
     uses_dense_fold: bool = False
+
+
+def _range_valid(cols, valid):
+    """The window's validity mask. ``valid`` is either the mask or, for a
+    device-resident window, a (lo, hi) pair of Python ints: the live
+    rows [lo, hi) of the window's slots, built into a mask on the
+    planes' device (resident windows carry no mask)."""
+    if isinstance(valid, tuple):
+        lo, hi = valid
+        p = next(iter(cols.values()))[0]
+        iota = torch.arange(p.shape[0], dtype=torch.int32, device=p.device)
+        return (iota >= lo) & (iota < hi)
+    return valid
 
 
 def _struct_key(x):
@@ -263,8 +283,18 @@ def compile_fragment(ops, input_relation, input_dicts, registry: Registry,
     pre, agg, post, limit = _split_chain(list(ops))
     apply_pre, rel1, dicts1 = _bind_pre_stage(pre, input_relation, dict(input_dicts), registry)
     if agg is None:
-        raise NotImplementedError(
-            "chains without an aggregate are not in this slice of the port"
+        if post:
+            raise AssertionError("post ops without agg should be in pre")
+        out_meta = [
+            ColumnMeta(name=n, dtype=t, dict=dicts1.get(n)) for n, t in rel1.items()
+        ]
+
+        def update(cols, valid):
+            return apply_pre(cols, _range_valid(cols, valid))
+
+        return CompiledFragment(
+            relation=rel1, out_meta=out_meta, is_agg=False, update=update,
+            limit=limit,
         )
     return _compile_agg(
         agg, post, limit, apply_pre, rel1, dicts1, registry, device,
@@ -441,7 +471,7 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
 
     def window_state(cols, valid):
         """Fold one window of rows into a fresh [G]-slot group state."""
-        cols, valid = apply_pre(cols, valid)
+        cols, valid = apply_pre(cols, _range_valid(cols, valid))
         gids, oob = dense_slot_ids(cols, valid)
         if uses_dense_fold:
             carries_w, valid_w = dense_fold_carries(gids, cols, valid)

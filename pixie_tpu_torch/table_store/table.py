@@ -1,11 +1,15 @@
 """Table: relation + dictionaries over an append-only ring of host batches.
 
 A port of the JAX package's ``table_store/table.py`` without its native
-ring, cold tier, device-resident window cache and ingest sketches. Rows
-live in host memory (numpy) in the pure-numpy ring ``_PyBackend``;
-queries read them in windows that the engine copies to the device.
-``Table.col_stats`` keeps per-column (min, max) over every appended
-integer row, which the fragment compiler turns into dense key domains.
+ring and cold tier. Rows live in host memory (numpy) in the pure-numpy
+ring ``_PyBackend``. On the push path ``append`` keeps per-column
+(min, max) bounds (``col_stats``, which the fragment compiler turns into
+dense key domains) and the ingest sketches (``sketches.py``, whose zone
+maps drive window skipping), and, with ``device_residency`` on, stages
+every newly completed window onto the table's device
+(``device_cache.py``). Queries read resident windows through
+``device_scan``, or host windows through ``scan``. A table with no
+device (``device`` is None until an engine sets it) stages nothing.
 
 Reference parity: ``src/table_store/table/table.h`` (Table, Cursor,
 batch queue with byte-budget expiry).
@@ -18,10 +22,12 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
+from ..config import get_flag
 from ..types.batch import HostBatch
 from ..types.dtypes import DataType, host_dtypes
 from ..types.relation import Relation
 from ..types.strings import StringDictionary
+from .device_cache import DeviceWindowCache, stage_window
 
 TIME_COLUMN = "time_"
 
@@ -129,6 +135,18 @@ class Table:
         # Per-column (min, max) over every row ever appended, for
         # single-plane integer columns (expiry never narrows them).
         self.col_stats: dict[str, tuple[int, int]] = {}
+        # Ingest sketches (sketches.py), gated by the ingest_sketches
+        # flag; None until the first sketched append.
+        self.sketches = None
+        # Device residency: the device windows are staged to (set by the
+        # engine that owns the table), the staged windows, and the
+        # watermark of rows already staged at append time. The staging
+        # window size defaults to the window_rows flag and is adopted
+        # from the first consumer that scans at another size.
+        self.device = None
+        self._device_cache = DeviceWindowCache()
+        self._staged_through = 0
+        self.device_window_rows = int(get_flag("window_rows"))
         if len(self.relation):
             self._init_backend()
 
@@ -201,7 +219,7 @@ class Table:
                     f"1-D of length {hb.length}"
                 )
         for (c, i), p in zip(self._plane_layout, planes):
-            if i == 0 and self.relation.col_type(c) in (
+            if i == 0 and len(p) and self.relation.col_type(c) in (
                 DataType.INT64, DataType.TIME64NS
             ):
                 lo, hi = int(p.min()), int(p.max())
@@ -210,26 +228,77 @@ class Table:
                     (lo, hi) if cur is None else (min(cur[0], lo), max(cur[1], hi))
                 )
         times = cols[TIME_COLUMN][0] if (TIME_COLUMN, 0) == self._plane_layout[0] else None
-        self._backend.append(planes, times)
+        rid = self._backend.append(planes, times)
+        if (
+            get_flag("ingest_sketches") and rid >= 0
+            and not self.name.startswith("__")
+        ):
+            # Zone maps and NDV for the single-plane INT64 and STRING
+            # code columns; time_ is skipped (the time index covers it),
+            # and dunder telemetry tables are never sketched.
+            if self.sketches is None:
+                from .sketches import TableSketches
+
+                self.sketches = TableSketches()
+            self.sketches.rows += hb.length
+            for (c, i), p in zip(self._plane_layout, planes):
+                if i != 0 or c == TIME_COLUMN or len(p) == 0:
+                    continue
+                if self.relation.col_type(c) in (
+                    DataType.INT64, DataType.STRING
+                ) and len(host_dtypes(self.relation.col_type(c))) == 1:
+                    self.sketches.update(c, p, rid)
+        if get_flag("device_residency"):
+            # Ship newly completed windows to the device now (the copy is
+            # asynchronous on CUDA) so queries find them resident.
+            self.stage_resident()
         return hb
+
+    # -- row-id space ---------------------------------------------------------
+    def first_row_id(self) -> int:
+        """Oldest live row id (advances on expiry)."""
+        return self._backend.first_row_id()
+
+    def end_row_id(self) -> int:
+        return self._backend.end_row_id()
+
+    def row_id_for_time(self, t: int, strictly_greater: bool) -> int:
+        return self._backend.row_id_for_time(t, strictly_greater)
+
+    def read_rows(self, start_row_id: int, max_rows: int):
+        """(planes in ring order, first row id read, rows read)."""
+        return self._backend.read(start_row_id, max_rows)
+
+    def _row_range(self, start_time, stop_time) -> tuple[int, int]:
+        row = (
+            self.row_id_for_time(int(start_time), False)
+            if start_time is not None else self.first_row_id()
+        )
+        stop = self.end_row_id()
+        if stop_time is not None:
+            stop = min(stop, self.row_id_for_time(int(stop_time) - 1, True))
+        return row, stop
 
     # -- read path -----------------------------------------------------------
     def scan(self, start_time=None, stop_time=None, window_rows: int = 1 << 17,
-             cols: Optional[Sequence[str]] = None):
+             cols: Optional[Sequence[str]] = None, prune=None):
         """Yield HostBatch windows of up to ``window_rows`` rows in row-id
         order, time-bounded to [start_time, stop_time), holding the
-        columns ``cols`` (all when None)."""
+        columns ``cols`` (all when None).
+
+        ``prune(row_lo, row_hi) -> bool`` (exec/zoneskip.py) is consulted
+        per window BEFORE the read: True moves past [row_lo, row_hi)
+        without reading it."""
         be = self._backend
         if be is None:
             return
-        row = (
-            be.row_id_for_time(int(start_time), False)
-            if start_time is not None else be.first_row_id()
-        )
-        stop = be.end_row_id()
-        if stop_time is not None:
-            stop = min(stop, be.row_id_for_time(int(stop_time) - 1, True))
+        row, stop = self._row_range(start_time, stop_time)
         while row < stop:
+            if prune is not None:
+                hi = min(row + window_rows, stop)
+                if prune(row, hi):
+                    row = hi
+                    continue
             planes, first, n = be.read(row, min(window_rows, stop - row))
             # Expiry may have moved the read past the stop snapshot.
             n = min(n, max(0, stop - first))
@@ -237,6 +306,78 @@ class Table:
                 return
             row = first + n
             yield self._batch_from_planes([p[:n] for p in planes], cols)
+
+    def stage_resident(self) -> None:
+        """Stage all complete windows onto the table's device."""
+        if self._backend is None or self.device is None:
+            return
+        w = self.device_window_rows
+        cache = self._device_cache
+        cache.evict_before(self.first_row_id())
+        end = self.end_row_id()
+        self._staged_through = max(
+            self._staged_through, (self.first_row_id() // w) * w
+        )
+        while self._staged_through + w <= end:
+            k = self._staged_through // w
+            first = max(k * w, self.first_row_id())
+            n = min((k + 1) * w, end) - first
+            if n > 0 and cache.get((w, k, first, n)) is None:
+                win = stage_window(self, k, w)
+                if win is not None:
+                    cache.put((w, k, win.row0, win.n), win)
+            self._staged_through = (k + 1) * w
+
+    def device_scan(self, start_time=None, stop_time=None,
+                    window_rows: int | None = None, prune=None, stats=None):
+        """Yield (DeviceWindow, lo_row, hi_row) covering the time range.
+
+        Windows come from the device-resident cache when staged (no
+        transfer); misses (typically the partial tail window) are staged
+        on demand and cached keyed by their length, so a grown tail is
+        staged again while full windows stay as they are.
+        ``prune(lo, hi)`` (exec/zoneskip.py) runs BEFORE the cache probe,
+        so a skipped window is never staged. ``stats`` (optional) counts
+        each window served as "resident" or "staged"."""
+        if self._backend is None:
+            return
+        if self.device is None:
+            raise ValueError(f"table {self.name!r} has no device to stage to")
+        w = int(window_rows or self.device_window_rows)
+        cache = self._device_cache
+        cache.evict_before(self.first_row_id())
+        if w != self.device_window_rows:
+            # Adopt the consumer's window size: later appends stage at w,
+            # and stagings at other sizes are reclaimed now.
+            self.device_window_rows = w
+            self._staged_through = 0
+        cache.evict_other_window_sizes(w)
+        start_row, stop_row = self._row_range(start_time, stop_time)
+        if stop_row <= start_row:
+            return
+        for k in range(start_row // w, (stop_row + w - 1) // w):
+            first = max(k * w, self.first_row_id())
+            n = min((k + 1) * w, self.end_row_id()) - first
+            if n <= 0:
+                continue
+            if prune is not None:
+                plo = max(start_row, first)
+                phi = min(stop_row, first + n)
+                if phi > plo and prune(plo, phi):
+                    continue
+            win = cache.get((w, k, first, n))
+            if win is None:
+                win = stage_window(self, k, w)
+                if win is None:
+                    continue
+                cache.put((w, k, win.row0, win.n), win)
+                if stats is not None:
+                    stats.add("staged")
+            elif stats is not None:
+                stats.add("resident")
+            lo, hi = max(start_row, win.row0), min(stop_row, win.row0 + win.n)
+            if hi > lo:
+                yield win, lo, hi
 
     def _batch_from_planes(self, planes, cols=None) -> HostBatch:
         by_key = {k: p for k, p in zip(self._plane_layout, planes)}
@@ -257,3 +398,8 @@ class Table:
     def num_rows(self) -> int:
         be = self._backend
         return be.end_row_id() - be.first_row_id() if be is not None else 0
+
+    @property
+    def resident_bytes(self) -> int:
+        """Bytes of this table's windows resident on its device."""
+        return self._device_cache.nbytes

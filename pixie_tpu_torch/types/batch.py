@@ -5,10 +5,17 @@ package, a ``DeviceBatch`` is a fixed-capacity set of column planes plus
 a validity mask: filters flip mask bits instead of producing
 data-dependent shapes, and capacities are bucketed to powers of two. A
 logical column is 1-2 physical planes (UINT128 -> hi/lo uint64).
+
+Staging onto a CUDA device (``stage_planes``) pads each plane on the
+host into a pinned buffer and copies it without blocking on a copy
+stream of the device's own; the consumer waits for the copy's event at
+hand-off (``handoff``). On the CPU the same call builds CPU tensors.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 from dataclasses import dataclass, field
 from typing import Mapping, Sequence
 
@@ -100,30 +107,167 @@ class HostBatch:
         return out
 
     def to_device(self, capacity: int, device: torch.device) -> "DeviceBatch":
-        """Pad to a fixed capacity and copy to ``device``."""
+        """Pad to a fixed capacity and copy to ``device`` (``stage_planes``:
+        on CUDA one pinned buffer per plane and an asynchronous copy; the
+        consumer calls ``handoff`` before it reads the planes)."""
         if capacity < self.length:
             raise ValueError(f"capacity {capacity} < batch length {self.length}")
-        cols: dict[str, Planes] = {}
+        names, planes, pads, ddts = [], [], [], []
         for name, dt in self.relation.items():
-            planes = []
             for plane, pad, ddt in zip(
                 self.cols[name], pad_values(dt), device_dtypes(dt)
             ):
-                t = torch.full((capacity,), pad, dtype=ddt)
-                t[: self.length] = torch.from_numpy(
-                    np.ascontiguousarray(plane)
-                ).to(ddt)
-                planes.append(t.to(device))
-            cols[name] = tuple(planes)
-        valid = torch.zeros(capacity, dtype=torch.bool)
-        valid[: self.length] = True
-        return DeviceBatch(relation=self.relation, cols=cols, valid=valid.to(device))
+                names.append(name)
+                planes.append(plane)
+                pads.append(pad)
+                ddts.append(ddt)
+        staged, event = stage_planes(planes, pads, ddts, capacity, device)
+        cols: dict[str, list] = {}
+        for name, t in zip(names, staged):
+            cols.setdefault(name, []).append(t)
+        valid = torch.arange(capacity, device=device) < self.length
+        return DeviceBatch(
+            relation=self.relation,
+            cols={n: tuple(ps) for n, ps in cols.items()},
+            valid=valid,
+            event=event,
+        )
 
 
 @dataclass
 class DeviceBatch:
-    """Fixed-capacity device-resident columnar batch with validity mask."""
+    """Fixed-capacity device-resident columnar batch with validity mask.
+    ``event`` marks the end of its host -> device copy (None on the CPU)."""
 
     relation: Relation
     cols: dict[str, Planes]
     valid: torch.Tensor
+    event: object = None
+    _handed: set = field(default_factory=set, repr=False)
+
+    def handoff(self) -> None:
+        """Order the consumer's current stream after the copy (once per
+        consumer stream)."""
+        handoff(self.cols, self.event, self._handed)
+
+
+# -- staging onto a CUDA device -----------------------------------------------
+class _Slot:
+    """One set of pinned host buffers (one per plane) and the event of
+    the last copy out of them."""
+
+    __slots__ = ("bufs", "event", "seq")
+
+    def __init__(self, bufs):
+        self.bufs = bufs
+        self.event = None
+        self.seq = 0
+
+
+class _Stager:
+    """Pinned host buffers and a copy stream for one CUDA device.
+
+    Each staging takes a slot of pinned buffers whose last copy has
+    completed (or, when all ``SLOTS`` are in flight, waits on the host
+    for the oldest one's event), pads the planes into it, and copies
+    each plane to a device tensor on the copy stream without blocking.
+    A pinned buffer is refilled only after its copy's event completed,
+    so a window is never overwritten mid-copy. The device tensors are
+    allocated on the copy stream; ``handoff`` makes the consumer's
+    stream wait for the copy and records the consumer's use with the
+    caching allocator, so freed memory is not reused under a read.
+    """
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+        self.lock = threading.Lock()
+        self.slots: dict[tuple, list[_Slot]] = {}
+        self._seq = itertools.count(1)
+
+    def _acquire(self, capacity: int, dtypes: tuple) -> _Slot:
+        slots = self.slots.setdefault((capacity, dtypes), [])
+        for s in slots:
+            if s.event is None or s.event.query():
+                return s
+        if len(slots) < self.SLOTS:
+            s = _Slot([
+                torch.empty(capacity, dtype=d, pin_memory=True) for d in dtypes
+            ])
+            slots.append(s)
+            return s
+        s = min(slots, key=lambda x: x.seq)
+        s.event.synchronize()
+        return s
+
+    def stage(self, planes, pads, dtypes, capacity: int):
+        with self.lock:
+            slot = self._acquire(capacity, tuple(dtypes))
+            for buf, p, pad in zip(slot.bufs, planes, pads):
+                n = len(p)
+                if n:
+                    buf[:n].copy_(torch.from_numpy(np.ascontiguousarray(p)))
+                buf[n:].fill_(pad)
+            out = []
+            with torch.cuda.stream(self.stream):
+                for buf in slot.bufs:
+                    d = torch.empty(capacity, dtype=buf.dtype, device=self.device)
+                    d.copy_(buf, non_blocking=True)
+                    out.append(d)
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            slot.event = event
+            slot.seq = next(self._seq)
+        return out, event
+
+
+_STAGERS: dict = {}
+_STAGERS_LOCK = threading.Lock()
+
+
+def stager(device: torch.device) -> _Stager:
+    """The process's stager for one CUDA device (made at first use)."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    with _STAGERS_LOCK:
+        st = _STAGERS.get(key)
+        if st is None:
+            st = _STAGERS[key] = _Stager(torch.device("cuda", key))
+        return st
+
+
+def stage_planes(planes, pads, dtypes, capacity: int, device: torch.device):
+    """Pad each host plane to ``capacity`` with its pad value and place it
+    on ``device`` in its device dtype. Returns (tensors, event): on CUDA
+    the copies are asynchronous and ``event`` marks their end; on the
+    CPU the tensors are ready and ``event`` is None."""
+    for p in planes:
+        if len(p) > capacity:
+            raise ValueError(f"capacity {capacity} < plane length {len(p)}")
+    if device.type == "cuda":
+        return stager(device).stage(planes, pads, dtypes, capacity)
+    out = []
+    for p, pad, ddt in zip(planes, pads, dtypes):
+        t = torch.full((capacity,), pad, dtype=ddt, device=device)
+        t[: len(p)] = torch.from_numpy(np.ascontiguousarray(p)).to(ddt)
+        out.append(t)
+    return out, None
+
+
+def handoff(cols: dict, event, handed: set) -> None:
+    """Make the current stream of the planes' device wait for ``event``
+    (the end of their staging copy) and record the planes' use on it, so
+    the caching allocator keeps them until that stream's reads are done.
+    Runs once per consumer stream (``handed`` holds the streams served)."""
+    if event is None:
+        return
+    first = next(iter(cols.values()))[0]
+    stream = torch.cuda.current_stream(first.device)
+    if stream.cuda_stream in handed:
+        return
+    stream.wait_event(event)
+    for planes in cols.values():
+        for t in planes:
+            t.record_stream(stream)
+    handed.add(stream.cuda_stream)

@@ -104,6 +104,11 @@ def register(reg):
         reg.scalar("greaterThan", (dt, dt), BOOLEAN, lambda a, b: a > b)
         reg.scalar("greaterThanEqual", (dt, dt), BOOLEAN, lambda a, b: a >= b)
 
+    # -- logical -------------------------------------------------------------
+    reg.scalar("logicalAnd", (BOOLEAN, BOOLEAN), BOOLEAN, lambda a, b: a & b)
+    reg.scalar("logicalOr", (BOOLEAN, BOOLEAN), BOOLEAN, lambda a, b: a | b)
+    reg.scalar("logicalNot", (BOOLEAN,), BOOLEAN, lambda a: ~a)
+
     # -- UDAs ----------------------------------------------------------------
     # Float carries are f64 even though column planes are f32 ([G]-sized
     # accumulators), integer carries exact i64 — the JAX package's carries.

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``pixie_tpu_torch/`` (nor
-``chip_smoke.py`` or ``chip_ab.py``) imports JAX or the JAX package, a CPU query leaves
-neither in ``sys.modules``, and nothing falls back to the CPU or to a
-plain version on its own."""
+``chip_smoke.py`` or ``chip_ab.py``) imports JAX or the JAX package, a CPU
+query through every module of the window path (device cache, sketches,
+zone skipping, pipeline) leaves neither in ``sys.modules``, and nothing
+falls back to the CPU or to a plain version on its own."""
 
 import ast
 import os
@@ -54,6 +55,20 @@ out = eng.execute_query(
     "px.display(df.groupby('k').agg(n=('v', px.count), s=('v', px.sum)))"
 )["output"].to_pydict()
 assert sorted(out["n"].tolist()) == [1000, 1000, 1000], out
+eng = Engine(window_rows=1024, device="cpu", pipeline_depth=2)
+for lo in range(0, 3072, 1024):  # one zone-map entry per window
+    r = np.arange(lo, lo + 1024)
+    eng.append_data("t", {"time_": r, "v": r})
+rows = eng.execute_query(
+    "import px\\ndf = px.DataFrame(table='t')\\n"
+    "df = df[df.v >= 2500]\\npx.display(df.head(10))"
+)["output"].to_pydict()
+assert rows["v"].tolist() == list(range(2500, 2510)), rows
+st = eng.last_stats
+assert (st.resident_windows, st.skipped_windows) == (1, 2), st
+for mod in ("exec.pipeline", "exec.zoneskip", "exec.stream",
+            "table_store.device_cache", "table_store.sketches", "ops.hll"):
+    assert "pixie_tpu_torch." + mod in sys.modules, mod
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
 assert not bad, bad
