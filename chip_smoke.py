@@ -20,7 +20,8 @@ without them. In order it:
    384, with and without the min, plus non-finite values; 33 groups x
    8192 histogram bins), at the edges of their designs (a ragged n,
    misaligned views, calls back to back, g = 2048, an all-trash window)
-   and on each histogram route (3, 33 and 64 groups), and times kernel,
+   and on each histogram route (3, 33 and 64 groups; 32768 groups x
+   1024 bins for the group_by phase), and times kernel,
    plain version and a PyTorch library yardstick with CUDA events, and
    all device work of one call from a torch.profiler trace, and
    profiles one t-digest window update (``batch_to_digest``) by kernel;
@@ -34,10 +35,19 @@ without them. In order it:
    off at pipeline depth 1 and 2 (the staging the prefetch thread
    hides); the row chains px/http_errors and px/http_data in row order;
    a tail of 2^20 + 3 appended rows (only the tail window is staged by
-   the next query); a 256 MiB device_cache_bytes budget (resident bytes
-   and the allocator's growth stay inside it); and 2^27 rows, 4 GiB
-   resident, under one px/http_stats query;
-6. prints one ``{"kernels": [...]}`` line and, last, the device line.
+   the next query); the group-by without a dense key domain (below); a
+   256 MiB device_cache_bytes budget (resident bytes and the allocator's
+   growth stay inside it); and 2^27 rows, 4 GiB resident, under one
+   px/http_stats query;
+6. the group_by phase: which uint64 ops the card's PyTorch has; a
+   2^23-row process_stats replay (20,000 upids in 2,000 pods, UINT128
+   keys, 0.9 GB resident); a filtered row chain that carries the upid
+   to the host; then px/upids, px/pods, px/pid_memory_usage and rss
+   p50/p99 by upid, each checked against numpy, in three turns per
+   groupby_impl form (sort, hash), with the rebuckets, the host syncs
+   per window (by the line that made them), the hist_fold launches and
+   the card's idle share of each;
+7. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -459,6 +469,27 @@ def hist_fold_inputs(replay, device, num_groups: int, rows: int = WINDOW,
             torch.from_numpy(vals).to(device), n_slots)
 
 
+def hist_fold_group_by_inputs(device, rows: int = WINDOW):
+    """One window of the group_by phase's t-digest fold at its last rung:
+    20,000 upids' group ids at G = 32768 groups of B = 1024 bins (2^25
+    slots, the global route), RSS-like values, every 97th row trash."""
+    import torch
+    from pixie_tpu_torch.ops.tdigest import _hist_bins
+
+    rng = np.random.default_rng(SEED + 3)
+    groups = 32768
+    b = _hist_bins(groups)
+    vals = np.exp(rng.uniform(np.log(1 << 24), np.log(1 << 32), rows)
+                  ).astype(np.float32)
+    bits = vals.view(np.uint32).astype(np.int64)
+    bins = (bits | 0x80000000) >> (32 - b.bit_length() + 1)
+    n_slots = groups * b
+    ids = rng.integers(0, GB_UPIDS, rows) * b + bins
+    ids[::97] = n_slots
+    return (torch.from_numpy(ids.astype(np.int32)).to(device),
+            torch.from_numpy(vals).to(device), n_slots)
+
+
 #: Group counts whose slot counts (G x 8192) cover the histogram kernel's
 #: routes: 3 the ranges route with one range (a private copy of every
 #: slot per block), 33 (service_stats) the ranges route with 10 ranges,
@@ -469,8 +500,9 @@ HIST_ROUTE_GROUPS = (("ranges", 3), ("ranges", N_SERVICES + 1),
 
 def check_hist_fold(replay, device) -> dict:
     """hist_fold against its plain version on each route: the window and
-    the edge views; on the main path's route also two calls back to back
-    and an all-trash window. Weights exact, sums rtol 1e-5."""
+    the edge views, also at the group_by phase's shape (2^25 slots); on
+    the main path's route also two calls back to back and an all-trash
+    window. Weights exact, sums rtol 1e-5."""
     import torch
     from pixie_tpu_torch.ops.hist_fold import (
         hist_fold, hist_fold_reference, route,
@@ -506,6 +538,26 @@ def check_hist_fold(replay, device) -> dict:
                 lambda i, v: hist_fold(i, v, n_slots), inputs),
             **_bound(WINDOW * 8 + n_slots * 8, WINDOW * 2),
         })
+
+    # The group_by phase's shape (quantiles by upid, 2^25 slots).
+    ids, vals, n_slots = hist_fold_group_by_inputs(device, rows=WINDOW + 5)
+    assert route(n_slots) == "global", n_slots
+    tag = f"global,group_by,slots={n_slots}"
+    for label, i, v in ([("main", ids[:WINDOW], vals[:WINDOW])]
+                        + _edge_views(ids, vals, WINDOW)):
+        compare(hist_fold(i, v, n_slots), i, v, n_slots, f"{label},{tag}")
+    inputs = _rotating((ids[:WINDOW], vals[:WINDOW]))
+    shapes.append({
+        "label": "global,group_by", "route": "global", "rows": WINDOW,
+        "slots": n_slots,
+        "ms": event_ms(lambda i, v: hist_fold(i, v, n_slots), inputs),
+        "device_ms": profiled_device_ms(
+            lambda i, v: hist_fold(i, v, n_slots), inputs),
+        "plain_ms": event_ms(
+            lambda i, v: hist_fold_reference(i, v, n_slots), inputs),
+        **_bound(WINDOW * 8 + n_slots * 8, WINDOW * 2),
+    })
+    del ids, vals, inputs
 
     groups = N_SERVICES + 1
     calls = [hist_fold_inputs(replay, device, groups, start=k * WINDOW)
@@ -864,6 +916,378 @@ def phase_full_budget(device) -> None:
     assert (rec["resident_windows"], rec["staged_windows"]) == (rows // WINDOW, 0)
 
 
+# -- the group-by without a dense key domain ---------------------------------
+GB_ROWS = 1 << 23
+GB_UPIDS, GB_NODES, GB_PODS = 20_000, 100, 2_000
+GB_ROW_BYTES = 108  # time_, 10 INT64 counters, UINT128 upid (16), pod id (4)
+GB_FORMS = ("sort", "hash")
+GB_TURNS = ("sort", "hash", "hash", "sort", "sort", "hash")
+
+# The JAX package's process_stats relation (its ``ingest/schemas.py``).
+PROCESS_STATS = [
+    ("time_", "TIME64NS"), ("upid", "UINT128"), ("major_faults", "INT64"),
+    ("minor_faults", "INT64"), ("cpu_utime_ns", "INT64"),
+    ("cpu_ktime_ns", "INT64"), ("rss_bytes", "INT64"),
+    ("vsize_bytes", "INT64"), ("rchar_bytes", "INT64"),
+    ("wchar_bytes", "INT64"), ("read_bytes", "INT64"),
+    ("write_bytes", "INT64"), ("pod", "STRING"),
+]
+
+RSS_QUANTILES = """import px
+df = px.DataFrame(table='process_stats')
+q = df.groupby('upid').agg(rss_q=('rss_bytes', px.quantiles))
+q.p50 = px.pluck_float64(q.rss_q, 'p50')
+q.p99 = px.pluck_float64(q.rss_q, 'p99')
+px.display(q[['upid', 'p50', 'p99']])
+"""
+
+GB_QUERIES = ("px/upids", "px/pods", "px/pid_memory_usage", "rss_quantiles")
+
+# A row chain that carries the UINT128 upid through a filter to the host.
+BIG_PROCESSES = """import px
+df = px.DataFrame(table='process_stats')
+df = df[df.rss_bytes > 4000000000]
+px.display(df.head(1000))
+"""
+
+
+def make_process_stats(n: int, seed: int = SEED) -> dict:
+    """A process_stats replay: GB_UPIDS processes, 200 on each of
+    GB_NODES nodes (upid hi = asid << 32 | pid, lo = start ticks), each
+    in one of GB_PODS pods (10 per pod), sampled uniformly row by row.
+    RSS is a per-process base (16 MiB to 4 GiB, log-uniform) times 1 to
+    1.1; vsize 2-6x the RSS."""
+    rng = np.random.default_rng(seed)
+    asid = np.repeat(np.arange(GB_NODES, dtype=np.uint64), GB_UPIDS // GB_NODES)
+    pid = rng.integers(1, 1 << 22, GB_UPIDS).astype(np.uint64)
+    hi = (asid << np.uint64(32)) | pid
+    lo = rng.integers(1 << 30, 1 << 44, GB_UPIDS).astype(np.uint64)
+    assert len(np.unique(np.stack([hi, lo], 1), axis=0)) == GB_UPIDS
+    pod_of = rng.permutation(np.arange(GB_UPIDS) % GB_PODS).astype(np.int32)
+    rss_base = np.exp(rng.uniform(np.log(1 << 24), np.log(1 << 32), GB_UPIDS))
+    u = rng.integers(0, GB_UPIDS, n)
+    rss = (rss_base[u] * (1.0 + 0.1 * rng.random(n))).astype(np.int64)
+    cols = {
+        "time_": np.arange(n, dtype=np.int64),
+        "upid": (hi[u], lo[u]),
+        "rss_bytes": rss,
+        "vsize_bytes": rss * rng.integers(2, 7, n),
+        "pod": pod_of[u],
+    }
+    for c, _t in PROCESS_STATS:
+        if c not in cols:
+            cols[c] = rng.integers(0, 1 << 40, n)
+    return {"u": u, "hi": hi, "lo": lo, "pod_of": pod_of, "cols": cols,
+            "pods": [f"ns-{i % 50}/pod-{i}" for i in range(GB_PODS)]}
+
+
+def load_process_stats(ps: dict, device):
+    """An Engine holding the replay as process_stats, appended in
+    WINDOW-row batches through ``Engine.append_data`` with the
+    reference's defaults (residency and ingest sketches on)."""
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.types import DataType, HostBatch, Relation, StringDictionary
+
+    rel = Relation([(c, getattr(DataType, t)) for c, t in PROCESS_STATS])
+    dicts = {"pod": StringDictionary(ps["pods"])}
+    cols, n = ps["cols"], len(ps["u"])
+    eng = Engine(window_rows=WINDOW, device=device)
+    eng.create_table("process_stats")
+    t0 = time.perf_counter()
+    for off in range(0, n, WINDOW):
+        s = slice(off, min(off + WINDOW, n))
+        eng.append_data("process_stats", HostBatch(relation=rel, cols={
+            c: tuple(p[s] for p in (v if isinstance(v, tuple) else (v,)))
+            for c, v in cols.items()
+        }, length=s.stop - s.start, dicts=dicts))
+    eng.append_secs = time.perf_counter() - t0
+    return eng
+
+
+def _group_quantiles(u, vals, qs):
+    """numpy's linear quantiles of ``vals`` per group id ``u``."""
+    order = np.lexsort((vals, u))
+    sv = vals[order].astype(np.float64)
+    cnt = np.bincount(u, minlength=GB_UPIDS)
+    start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    out = []
+    for q in qs:
+        pos = (cnt - 1) * q
+        k = np.floor(pos).astype(np.int64)
+        frac = pos - k
+        a = sv[start + k]
+        b = sv[start + np.minimum(k + 1, cnt - 1)]
+        out.append(a + frac * (b - a))
+    return out
+
+
+class GroupByExpect:
+    """numpy's answer to each group_by query over the replay, per upid
+    index (every upid has rows)."""
+
+    def __init__(self, ps: dict):
+        u, cols = ps["u"], ps["cols"]
+        self.ps = ps
+        self.cnt = np.bincount(u, minlength=GB_UPIDS)
+        assert (self.cnt > 0).all()
+        self.max = {}
+        for c in ("rss_bytes", "vsize_bytes", "cpu_utime_ns"):
+            m = np.full(GB_UPIDS, np.iinfo(np.int64).min, dtype=np.int64)
+            np.maximum.at(m, u, cols[c])
+            self.max[c] = m
+        self.p50, self.p99 = _group_quantiles(u, cols["rss_bytes"],
+                                              (0.5, 0.99))
+        key = ps["hi"].astype(object) * (1 << 64) + ps["lo"].astype(object)
+        self.index = {k: i for i, k in enumerate(key)}
+
+    def upid_index(self, upid) -> np.ndarray:
+        """Result rows' upids -> upid indices (each exactly once)."""
+        idx = np.array([
+            self.index[int(h) * (1 << 64) + int(l)] for h, l in upid
+        ])
+        assert len(idx) == GB_UPIDS, f"{len(idx)} upids of {GB_UPIDS}"
+        assert len(np.unique(idx)) == GB_UPIDS, "a upid appears twice"
+        return idx
+
+    def check(self, name: str, out) -> None:
+        got = out.to_pydict(decode_strings=False)
+        pod_of = self.ps["pod_of"]
+        if name == "px/pods":
+            assert np.array_equal(np.sort(got["pod"]), np.arange(GB_PODS)), (
+                "pods key set")
+            per_pod_rss = np.zeros(GB_PODS, dtype=np.int64)
+            np.add.at(per_pod_rss, pod_of, self.max["rss_bytes"])
+            procs = np.bincount(pod_of, minlength=GB_PODS)
+            np.testing.assert_array_equal(got["processes"], procs[got["pod"]])
+            np.testing.assert_array_equal(got["rss"], per_pod_rss[got["pod"]])
+            return
+        i = self.upid_index(got["upid"])
+        if name == "px/upids":
+            np.testing.assert_array_equal(got["pod"], pod_of[i])
+            np.testing.assert_array_equal(got["samples"], self.cnt[i])
+            np.testing.assert_array_equal(got["rss"], self.max["rss_bytes"][i])
+            np.testing.assert_array_equal(got["vsize"],
+                                          self.max["vsize_bytes"][i])
+            np.testing.assert_array_equal(got["cpu_utime_ns"],
+                                          self.max["cpu_utime_ns"][i])
+        elif name == "px/pid_memory_usage":
+            np.testing.assert_array_equal(got["rss"], self.max["rss_bytes"][i])
+            np.testing.assert_array_equal(got["vsize"],
+                                          self.max["vsize_bytes"][i])
+            np.testing.assert_array_equal(got["pod"], pod_of[i])  # px.any
+        else:
+            for q, want in (("p50", self.p50), ("p99", self.p99)):
+                err = np.abs(got[q] - want[i]) / want[i]
+                assert err.max() < 0.15, f"{q} off by {err.max():.3f}"
+
+
+def gb_query_text(name: str) -> str:
+    from pixie_tpu_torch.scripts import load_script
+
+    return RSS_QUANTILES if name == "rss_quantiles" else load_script(name)
+
+
+def _run_form(eng, name: str, form: str):
+    from pixie_tpu_torch.config import clear_flag, set_flag
+
+    set_flag("groupby_impl", form)
+    try:
+        t0 = time.perf_counter()
+        # Every upid in the output: the display limit's default is 10,000.
+        out = eng.execute_query(gb_query_text(name),
+                                max_output_rows=GB_UPIDS)["output"]
+        return out, time.perf_counter() - t0
+    finally:
+        clear_flag("groupby_impl")
+
+
+def count_syncs(eng, name: str, form: str) -> dict:
+    """One query under ``torch.cuda.set_sync_debug_mode("warn")``: each
+    host sync the card's PyTorch flags is one warning, from any thread
+    (the final reads of the result included). Each is attributed to the
+    innermost line of the port that made it; ``fold_syncs`` counts those
+    made inside a window's fold or merge (``window_state``,
+    ``merge_states``), the rest are finalize reads."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+    in_fold = [0]
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return
+        stack = traceback.extract_stack()
+        port = [f for f in stack if "pixie_tpu_torch" in f.filename]
+        where = "?"
+        if port:
+            f = port[-1]
+            where = (f.filename.split("pixie_tpu_torch/")[-1]
+                     + f":{f.lineno}")
+        sites[where] += 1
+        in_fold[0] += any(f.name in ("window_state", "merge_states")
+                          for f in stack)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _run_form(eng, name, form)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    total, fold = sum(sites.values()), in_fold[0]
+    windows = eng.last_stats.windows
+    return {"syncs": total, "fold_syncs": fold, "windows_folded": windows,
+            "syncs_per_window": total / windows,
+            "fold_syncs_per_window": fold / windows,
+            "sync_sites": dict(sites.most_common(8))}
+
+
+def form_busy(eng, name: str, form: str) -> dict:
+    """One query under torch.profiler: device busy time against wall
+    time (the idle share), and the four largest device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _out, wall = _run_form(eng, name, form)
+    per_op = sorted(
+        ((getattr(e, "self_device_time_total",
+                  getattr(e, "self_cuda_time_total", 0.0)), e.key)
+         for e in prof.key_averages()),
+        reverse=True,
+    )
+    busy_us = sum(us for us, _k in per_op)
+    torch.cuda.synchronize()
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall),
+            "top_device_ops": [{"op": k[:70], "s": us / 1e6}
+                               for us, k in per_op[:4]]}
+
+
+def probe_uint64(device) -> dict:
+    """Which PyTorch ops this card's build has for torch.uint64 (the
+    planes of a UINT128 column). The port uses none of them on the
+    card: it gathers, scatters, sorts and shifts through int64 views."""
+    import torch
+
+    u = torch.tensor([1, 2, 3, 5], dtype=torch.int64, device=device).view(
+        torch.uint64)
+    i = torch.tensor([0, 2], device=device)
+    ops = {
+        "index_select": lambda: u.index_select(0, i),
+        "getitem": lambda: u[i],
+        "index_put": lambda: u.clone().index_put_((i,), u[:2]),
+        "scatter": lambda: u.clone().scatter_(0, i, u[:2]),
+        "rshift": lambda: u >> 32,
+        "bitwise_and": lambda: u & u,
+        "eq": lambda: u == u,
+        "lt": lambda: u < u,
+        "argsort": lambda: torch.argsort(u, stable=True),
+        "cat": lambda: torch.cat([u, u]),
+        "where": lambda: torch.where(u == u, u, u),
+        "maximum": lambda: torch.maximum(u, u),
+        "full": lambda: torch.full((4,), 7, dtype=torch.uint64, device=device),
+    }
+    res = {}
+    for k, f in ops.items():
+        try:  # a missing kernel raises before any launch
+            f()
+            torch.cuda.synchronize(device)
+            res[k] = "ok"
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            res[k] = f"{type(e).__name__}: {str(e)[:60]}"
+    return res
+
+
+def phase_group_by(device) -> dict:
+    """The group-by without a dense key domain: a 2^23-row process_stats
+    replay (20,000 upids in 2,000 pods) resident in 4 windows, and the
+    upid-keyed scripts plus rss p50/p99 by upid, each checked against
+    numpy. Per query: seconds in three turns per groupby_impl form,
+    rows/s, rebuckets (the planner's 4096 groups climb to 32768), host
+    syncs per window, hist_fold launches (counters set to 0 just before
+    the measured query, read just after) and the card's idle share."""
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    print(json.dumps({"phase": "group_by_uint64_ops",
+                      "ops": probe_uint64(device)}))
+    t0 = time.perf_counter()
+    ps = make_process_stats(GB_ROWS)
+    expect = GroupByExpect(ps)
+    make_secs = time.perf_counter() - t0
+    eng = load_process_stats(ps, device)
+    table = eng.tables["process_stats"]
+    print(json.dumps({"phase": "group_by_append", "rows": GB_ROWS,
+                      "replay_and_numpy_secs": make_secs,
+                      "secs": eng.append_secs,
+                      "resident_bytes": table.resident_bytes}))
+    assert table.resident_bytes == GB_ROWS * GB_ROW_BYTES, table.resident_bytes
+
+    # The upid through a filter to the host, in row order, bit for bit.
+    eng.execute_query(BIG_PROCESSES)
+    t0 = time.perf_counter()
+    out = eng.execute_query(BIG_PROCESSES)["output"].to_pydict(
+        decode_strings=False)
+    secs = time.perf_counter() - t0
+    idx = np.flatnonzero(ps["cols"]["rss_bytes"] > 4_000_000_000)[:1000]
+    assert len(idx) == 1000 and out["upid"].dtype == np.uint64
+    np.testing.assert_array_equal(out["upid"][:, 0], ps["hi"][ps["u"][idx]])
+    np.testing.assert_array_equal(out["upid"][:, 1], ps["lo"][ps["u"][idx]])
+    for c, _t in PROCESS_STATS:
+        if c != "upid":
+            np.testing.assert_array_equal(out[c], ps["cols"][c][idx],
+                                          err_msg=c)
+    print(json.dumps({"phase": "group_by_rows", "rows_out": len(idx),
+                      "secs": secs, "checked": True}))
+
+    launches = {}
+    for name in GB_QUERIES:
+        for form in GB_FORMS:  # warm-up, checked
+            out, _secs = _run_form(eng, name, form)
+            expect.check(name, out)
+        secs = {f: [] for f in GB_FORMS}
+        rec = {"phase": "group_by", "query": name}
+        for form in GB_TURNS:
+            dense_fold.launches = 0
+            hist_fold.launches = 0
+            out, t = _run_form(eng, name, form)
+            counts = {"dense_fold": dense_fold.launches,
+                      "hist_fold": hist_fold.launches}
+            expect.check(name, out)
+            st = eng.last_stats
+            secs[form].append(t)
+            rec[form] = {
+                "rebuckets": st.rebuckets, "windows_folded": st.windows,
+                "resident_windows": st.resident_windows,
+                "staged_windows": st.staged_windows, "launches": counts,
+            }
+            # Four folds of the 4 resident windows; px/pods stages its
+            # second aggregate's input (the first one's 20,000 rows).
+            assert (st.resident_windows, st.staged_windows) == (
+                16, int(name == "px/pods")), rec[form]
+        for form in GB_FORMS:
+            med = float(np.median(secs[form]))
+            rec[form].update({
+                "secs": secs[form], "median_secs": med,
+                "rows_per_s": GB_ROWS / med,
+                **count_syncs(eng, name, form), **form_busy(eng, name, form),
+            })
+        rec["checked"] = True
+        print(json.dumps(rec))
+        launches[name] = {f: rec[f]["launches"] for f in GB_FORMS}
+        for form in GB_FORMS:  # 4096 -> 8192 -> 16384 -> 32768 groups
+            assert rec[form]["rebuckets"] == 3, (name, form, rec[form])
+    for form in GB_FORMS:
+        assert launches["rss_quantiles"][form]["hist_fold"] > 0, launches
+    return {f: launches["rss_quantiles"][f]["hist_fold"] for f in GB_FORMS}
+
+
 def main() -> int:
     import gc
 
@@ -932,6 +1356,12 @@ def main() -> int:
     phase_tail(eng, replay)
     del eng, table
     gc.collect()
+    # hist_fold's launches in the group_by phase's quantile query, per
+    # groupby_impl form (``launches`` stays the steady state's count).
+    hist = next(k for k in kernels if k["name"] == "hist_fold")
+    hist["launches_group_by"] = phase_group_by(device)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_eviction(replay, expect, device)
     gc.collect()
     torch.cuda.empty_cache()

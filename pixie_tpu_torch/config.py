@@ -3,7 +3,8 @@
 The same registry shape as the JAX package's ``config.py``: a value
 resolves from an explicit ``set_flag`` override, then the
 ``PIXIE_TPU_<NAME>`` environment variable, then the default. A flag
-whose default is a bool parses "1", "true", "yes" and "on" as True. Only
+whose default is a bool parses "1", "true", "yes" and "on" as True; one
+with a tuple of choices takes only those strings. Only
 the flags the port reads are defined, with the JAX package's names,
 defaults and docs. None of them routes work between a kernel and its
 plain version: the device decides that.
@@ -14,18 +15,29 @@ from __future__ import annotations
 import os
 import threading
 
-_DEFAULTS: dict[str, int | bool] = {}
+_DEFAULTS: dict[str, int | bool | str] = {}
 _DOCS: dict[str, str] = {}
-_OVERRIDES: dict[str, int | bool] = {}
+_CHOICES: dict[str, tuple] = {}
+_OVERRIDES: dict[str, int | bool | str] = {}
 _LOCK = threading.Lock()
 
 
-def define_flag(name: str, default: int | bool, doc: str) -> None:
+def define_flag(name: str, default: int | bool | str, doc: str,
+                choices: tuple | None = None) -> None:
     _DEFAULTS[name] = default
     _DOCS[name] = doc
+    if choices is not None:
+        _CHOICES[name] = choices
 
 
-def _parse(name: str, value) -> int | bool:
+def _parse(name: str, value) -> int | bool | str:
+    if name in _CHOICES:
+        value = str(value).strip().lower()
+        if value not in _CHOICES[name]:
+            raise ValueError(
+                f"flag {name}: {value!r} is not one of {_CHOICES[name]}"
+            )
+        return value
     if isinstance(_DEFAULTS[name], bool):
         if isinstance(value, str):
             return value.strip().lower() in ("1", "true", "yes", "on")
@@ -33,7 +45,7 @@ def _parse(name: str, value) -> int | bool:
     return int(value)
 
 
-def get_flag(name: str) -> int | bool:
+def get_flag(name: str) -> int | bool | str:
     default = _DEFAULTS[name]
     with _LOCK:
         if name in _OVERRIDES:
@@ -58,6 +70,12 @@ define_flag("window_rows", 1 << 17, "Rows per streamed device window.")
 define_flag("max_groups_limit", 1 << 22,
             "Hard cap for group-by capacity (the planner's eager-"
             "aggregation sizing reads it).")
+define_flag("groupby_impl", "auto",
+            "Per-window group-id algorithm for keys WITHOUT a static dense "
+            "domain: 'auto' picks per device (hash on the CPU, sort on "
+            "CUDA), 'sort' forces the multi-key stable sort (no host "
+            "sync), 'hash' forces the bounded-probe device table.",
+            choices=("auto", "sort", "hash"))
 define_flag("dense_domain_limit", 1 << 20,
             "Group-bys whose key columns all have statically-known domains "
             "(dictionary-encoded strings, booleans) with product <= this "

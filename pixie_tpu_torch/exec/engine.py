@@ -54,6 +54,7 @@ from .stream import (
     _apply_limit,
     _block_if,
     _concat_host,
+    _double_agg_groups,
     _Stream,
     _stream_col_stats,
     _timed,
@@ -106,6 +107,8 @@ class QueryStats:
       staged;
     - ``pipeline``: the window pipeline's counters (depth, windows,
       stage_secs, stall_secs);
+    - ``rebuckets``: group-by overflows refolded at twice the group
+      capacity (each refold's windows and rows count again);
     - ``read_s`` (host ring reads), ``stage_s`` (pad, copy, or the
       cache probe for resident windows), ``fold_s`` (filter, maps, UDA
       folds) and ``finalize_s`` (finalize and result assembly): with
@@ -121,6 +124,7 @@ class QueryStats:
     resident_windows: int = 0
     staged_windows: int = 0
     skipped_windows: int = 0
+    rebuckets: int = 0
     read_s: float = 0.0
     stage_s: float = 0.0
     fold_s: float = 0.0
@@ -391,23 +395,35 @@ class Engine:
             self._note_pipeline(pipe, stats)
         return state
 
-    def _run_fragment(self, stream: _Stream, stats: QueryStats,
-                      cancel) -> HostBatch:
-        frag = compile_fragment(
+    def _compile(self, stream: _Stream):
+        return compile_fragment(
             stream.chain, stream.relation, stream.dicts, self.registry,
             self.device, col_stats=_stream_col_stats(stream),
         )
+
+    def _run_fragment(self, stream: _Stream, stats: QueryStats,
+                      cancel) -> HostBatch:
+        frag = self._compile(stream)
         stats.fragments.append(frag)
         if frag.is_agg:
-            state = self._fold_agg_state(stream, frag, stats, cancel)
-            with _timed(stats, "finalize"):
-                out_cols, valid, overflow = frag.finalize(state)
-                if bool(overflow):
-                    raise QueryError(
-                        "rows escaped the group keys' dense domain (rows "
-                        "appended while the query ran); run the query again"
-                    )
-                out = _to_host_batch(frag.out_meta, out_cols, valid)
+            while True:
+                state = self._fold_agg_state(stream, frag, stats, cancel)
+                with _timed(stats, "finalize"):
+                    out_cols, valid, overflow = frag.finalize(state)
+                    # One read of the overflow flag per fold.
+                    if not bool(overflow):
+                        out = _to_host_batch(frag.out_meta, out_cols, valid)
+                        break
+                # Rebucket (the JAX engine's retry): more distinct keys
+                # than max_groups, or an integer key that escaped its
+                # stats-derived domain. Double max_groups, recompile
+                # against the stats as they are now and fold the stream
+                # again; past max_groups_limit, raise.
+                del state, out_cols, valid, overflow
+                stream = _double_agg_groups(stream)
+                frag = self._compile(stream)
+                stats.fragments.append(frag)
+                stats.rebuckets += 1
             return _apply_limit(out, frag.limit)
 
         # Rows: each window's surviving rows to the host, stopping early

@@ -1,12 +1,18 @@
 """Fragment compiler: a linear operator chain -> one window fold.
 
-A port of the dense-domain path of the JAX package's ``exec/fragment.py``.
-A chain {Map/Filter -> Agg -> Map/Filter -> Limit} becomes:
+A port of the JAX package's ``exec/fragment.py``. A chain
+{Map/Filter -> Agg -> Map/Filter -> Limit} becomes:
 
 - ``window_state(cols, valid)``: runs the filter and maps over one staged
-  window, packs each row's group keys into a dense slot id and folds the
-  window into a fresh [G]-slot group state;
-- ``merge_states(a, b)``: the slot-aligned associative merge;
+  window, gives each row a group id and folds the window into a fresh
+  [G]-slot group state. Keys with a static dense domain (dictionary
+  strings, booleans, integers bounded by the table's stats) pack into
+  the slot id itself; other keys (UINT128, FLOAT64, unbounded integers,
+  no group columns at all) get ids from the sort or hash form of
+  ``ops/groupby.py`` (the ``groupby_impl`` flag), and the state carries
+  their key planes;
+- ``merge_states(a, b)``: the associative merge, slot-aligned for dense
+  keys and through ``regroup_pair`` and ``scatter_carry`` otherwise;
 - ``finalize(state)``: UDA finalize + post-agg ops -> output columns.
 
 A chain without an aggregate {Map/Filter... -> Limit} becomes a rows
@@ -16,8 +22,9 @@ projection to one window and returns its planes and validity mask.
 ``valid`` is a bool mask or, for a device-resident window, a (lo, hi)
 row pair that the fragment turns into the mask on the device
 (``_range_valid``). PyTorch runs eagerly, so there is no compile cache.
-Group keys whose domain is not known statically (the sort/hash regroup
-of the JAX package's ``ops/groupby.py``) are a later slice of the port.
+A state's ``overflow`` is a device scalar: more distinct keys than G, or
+an integer key outside its compiled domain. The engine reads it once, at
+finalize, and rebuckets.
 """
 
 from __future__ import annotations
@@ -31,7 +38,14 @@ import torch
 
 from ..config import get_flag
 from ..ops.dense_fold import MAX_SLOTS, dense_fold
-from ..types.dtypes import DataType, device_dtypes
+from ..ops.groupby import (
+    dense_group_ids,
+    dense_group_ids_hash,
+    full_plane,
+    regroup_pair,
+    scatter_carry,
+)
+from ..types.dtypes import DataType, device_dtypes, pad_values
 from ..types.relation import Relation
 from ..udf.registry import Registry
 from ..udf.udf import UDADef, apply_cast
@@ -278,8 +292,22 @@ def unpack_dense_slots(iota, doms, col_types, offsets, strides):
     return planes
 
 
+def window_group_ids_for(device):
+    """The per-window group-id form for keys without a dense domain, by
+    the ``groupby_impl`` flag: 'auto' hashes on the CPU (as the JAX
+    package does there) and sorts on CUDA."""
+    impl = get_flag("groupby_impl")
+    if impl == "auto":
+        impl = "hash" if torch.device(device).type == "cpu" else "sort"
+    return dense_group_ids_hash if impl == "hash" else dense_group_ids
+
+
 def compile_fragment(ops, input_relation, input_dicts, registry: Registry,
-                     device, col_stats=None) -> CompiledFragment:
+                     device, allow_dense: bool = True,
+                     col_stats=None) -> CompiledFragment:
+    """Compile a chain into a fragment. ``allow_dense=False`` sends every
+    group-by through the sort/hash form, even over keys that have a
+    dense domain."""
     pre, agg, post, limit = _split_chain(list(ops))
     apply_pre, rel1, dicts1 = _bind_pre_stage(pre, input_relation, dict(input_dicts), registry)
     if agg is None:
@@ -298,12 +326,13 @@ def compile_fragment(ops, input_relation, input_dicts, registry: Registry,
         )
     return _compile_agg(
         agg, post, limit, apply_pre, rel1, dicts1, registry, device,
-        col_stats=_propagate_stats(pre, col_stats),
+        allow_dense=allow_dense, col_stats=_propagate_stats(pre, col_stats),
     )
 
 
 def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
-                 device, col_stats=None):
+                 device, allow_dense=True, col_stats=None):
+    g = agg.max_groups
     for c in agg.group_cols:
         if not rel1.has_column(c):
             raise BindError(f"group column {c!r} not in {rel1}")
@@ -311,33 +340,30 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
     # Static dense key domain: the PACKED CODE of the group columns is the
     # group id — no per-window sort or hash, and state merges are
     # slot-aligned. A single integer key gets the larger domain budget.
-    doms = (
-        _static_key_domains(rel1, dicts1, list(agg.group_cols), col_stats)
-        if agg.group_cols else None
-    )
-    g = None
-    if doms is not None:
-        total = math.prod(d for d, _off, _st in doms)
-        has_int = any(off or rel1.col_type(c) in _INT_KEY_TYPES
-                      for (_d, off, _st), c in zip(doms, agg.group_cols))
-        limit_slots = (
-            get_flag("int_dense_domain_limit")
-            if has_int and len(agg.group_cols) == 1
-            else get_flag("dense_domain_limit")
+    # Other keys take the sort/hash form at capacity agg.max_groups.
+    dense_domains = None
+    if allow_dense and agg.group_cols:
+        doms = _static_key_domains(
+            rel1, dicts1, list(agg.group_cols), col_stats
         )
-        if total <= limit_slots:
-            g = total
-    if g is None:
-        raise NotImplementedError(
-            "group-by keys without a static dense domain (the sort/hash "
-            "regroup) are a later slice of the port"
-        )
-    # Per-group-col domain sizes (the packed key IS the group id);
-    # offsets shift stats-derived integer keys to zero base and strides
-    # scale step-indexed codes (binned time keys).
-    dense_domains = tuple(d for d, _off, _st in doms)
-    dense_offsets = tuple(off for _d, off, _st in doms)
-    dense_strides = tuple(st for _d, _off, st in doms)
+        if doms is not None:
+            total = math.prod(d for d, _off, _st in doms)
+            has_int = any(off or rel1.col_type(c) in _INT_KEY_TYPES
+                          for (_d, off, _st), c in zip(doms, agg.group_cols))
+            limit_slots = (
+                get_flag("int_dense_domain_limit")
+                if has_int and len(agg.group_cols) == 1
+                else get_flag("dense_domain_limit")
+            )
+            if total <= limit_slots:
+                # Per-group-col domain sizes (the packed key IS the group
+                # id); offsets shift stats-derived integer keys to zero
+                # base and strides scale step-indexed codes (binned time
+                # keys).
+                dense_domains = tuple(d for d, _off, _st in doms)
+                dense_offsets = tuple(off for _d, off, _st in doms)
+                dense_strides = tuple(st for _d, _off, st in doms)
+                g = total
 
     # Bind aggregate input expressions and resolve UDAs.
     aggs_bound = []  # (AggExpr, UDADef, [BoundExpr], [cast pairs])
@@ -354,7 +380,18 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
             key_plane_index.append((c, i))
 
     def init_state():
+        if dense_domains is not None:
+            keys = ()  # implicit: the slot index IS the packed key
+        else:
+            keys = tuple(
+                full_plane(
+                    g, pad_values(rel1.col_type(c))[i],
+                    device_dtypes(rel1.col_type(c))[i], device,
+                )
+                for c, i in key_plane_index
+            )
         return {
+            "keys": keys,
             "valid": torch.zeros(g, dtype=torch.bool, device=device),
             "carries": {ae.out_name: uda.init(g, device) for ae, uda, _, _ in aggs_bound},
             "overflow": torch.zeros((), dtype=torch.bool, device=device),
@@ -407,10 +444,15 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
             dense_strides,
         )
 
+    # Per-window group ids for keys without a dense domain. The [2G]
+    # regroup merges always sort.
+    window_group_ids = window_group_ids_for(device)
+
     # The dense fold kernel (ops/dense_fold.py) serves count and FLOAT64
-    # sum/mean/max/min at g <= 2048: the JAX package's admission rule for
-    # its Pallas kernel, so both packages take the same route.
-    uses_dense_fold = g <= MAX_SLOTS and all(
+    # sum/mean/max/min over dense slots at g <= 2048: the JAX package's
+    # admission rule for its Pallas kernel, so both packages take the
+    # same route.
+    uses_dense_fold = dense_domains is not None and g <= MAX_SLOTS and all(
         ae.uda_name == "count"
         or (
             ae.uda_name in ("sum", "mean", "max", "min")
@@ -472,10 +514,17 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
     def window_state(cols, valid):
         """Fold one window of rows into a fresh [G]-slot group state."""
         cols, valid = apply_pre(cols, _range_valid(cols, valid))
-        gids, oob = dense_slot_ids(cols, valid)
-        if uses_dense_fold:
-            carries_w, valid_w = dense_fold_carries(gids, cols, valid)
-            return {"valid": valid_w, "carries": carries_w, "overflow": oob}
+        if dense_domains is not None:
+            gids, overflow = dense_slot_ids(cols, valid)
+            keys_w, valid_w = (), None
+            if uses_dense_fold:
+                carries_w, valid_w = dense_fold_carries(gids, cols, valid)
+                return {"keys": (), "valid": valid_w, "carries": carries_w,
+                        "overflow": overflow}
+        else:
+            key_planes = [cols[c][i] for c, i in key_plane_index]
+            gids, keys_w, valid_w, n_w = window_group_ids(key_planes, valid, g)
+            overflow = n_w > g
         carries_w = {}
         for ae, uda, arg_bound, casts in aggs_bound:
             args = [
@@ -483,29 +532,57 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
                 for b, (have, want) in zip(arg_bound, casts)
             ]
             carries_w[ae.out_name] = uda.update(uda.init(g, device), gids, valid, *args)
-        # A count aggregate's carry already says which slots saw rows.
-        cnt_name = next(
-            (ae.out_name for ae, _u, _b, _c in aggs_bound if ae.uda_name == "count"),
-            None,
-        )
-        if cnt_name is not None:
-            valid_w = carries_w[cnt_name] > 0
-        else:
-            seen = torch.zeros(g + 1, dtype=torch.bool, device=device)
-            valid_w = seen.index_fill_(0, gids.long(), True)[:g]
-        return {"valid": valid_w, "carries": carries_w, "overflow": oob}
+        if valid_w is None:
+            # Dense slots: a count aggregate's carry already says which
+            # slots saw rows.
+            cnt_name = next(
+                (ae.out_name for ae, _u, _b, _c in aggs_bound
+                 if ae.uda_name == "count"),
+                None,
+            )
+            if cnt_name is not None:
+                valid_w = carries_w[cnt_name] > 0
+            else:
+                seen = torch.zeros(g + 1, dtype=torch.bool, device=device)
+                valid_w = seen.index_fill_(0, gids.long(), True)[:g]
+        return {"keys": tuple(keys_w), "valid": valid_w,
+                "carries": carries_w, "overflow": overflow}
 
     def merge_states(sa, sb):
-        """Slot-aligned associative merge of two dense group states."""
+        """Associative merge of two group states: slot for slot over
+        dense keys; otherwise both states' slots map onto one id space
+        (``regroup_pair``) and each carry is moved there
+        (``scatter_carry``) before the UDA's merge."""
+        if dense_domains is not None:
+            return {
+                "keys": (),
+                "valid": sa["valid"] | sb["valid"],
+                "carries": {
+                    ae.out_name: uda.merge(
+                        sa["carries"][ae.out_name], sb["carries"][ae.out_name]
+                    )
+                    for ae, uda, _, _ in aggs_bound
+                },
+                "overflow": sa["overflow"] | sb["overflow"],
+            }
+        ids_a, ids_b, m_keys, m_valid, n_tot = regroup_pair(
+            sa["keys"], sa["valid"], sb["keys"], sb["valid"], g
+        )
+        carries = {}
+        for ae, uda, _, _ in aggs_bound:
+            neutral = uda.init(g, device)
+            ca = scatter_carry(
+                sa["carries"][ae.out_name], ids_a, sa["valid"], g, neutral
+            )
+            cb = scatter_carry(
+                sb["carries"][ae.out_name], ids_b, sb["valid"], g, neutral
+            )
+            carries[ae.out_name] = uda.merge(ca, cb)
         return {
-            "valid": sa["valid"] | sb["valid"],
-            "carries": {
-                ae.out_name: uda.merge(
-                    sa["carries"][ae.out_name], sb["carries"][ae.out_name]
-                )
-                for ae, uda, _, _ in aggs_bound
-            },
-            "overflow": sa["overflow"] | sb["overflow"],
+            "keys": tuple(m_keys),
+            "valid": m_valid,
+            "carries": carries,
+            "overflow": sa["overflow"] | sb["overflow"] | (n_tot > g),
         }
 
     # Output relation: group cols then agg outputs (struct sketches keep a
@@ -554,8 +631,15 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
 
     def finalize(state):
         cols = {}
-        for c, plane in zip(group_cols, dense_key_planes()):
-            cols[c] = (plane,)
+        if dense_domains is not None:
+            for c, plane in zip(group_cols, dense_key_planes()):
+                cols[c] = (plane,)
+        else:
+            for c in group_cols:
+                cols[c] = tuple(
+                    kp for kp, (kc, _i) in zip(state["keys"], key_plane_index)
+                    if kc == c
+                )
         for ae, uda, _, _ in aggs_bound:
             cols[ae.out_name] = (uda.finalize(state["carries"][ae.out_name]),)
         device_cols = {n: p for n, p in cols.items() if n not in struct_cols}

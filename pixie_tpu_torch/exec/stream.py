@@ -3,8 +3,9 @@
 A port of the part of the JAX package's ``exec/stream.py`` that the
 single-engine window path needs: the query errors, the ``_Stream`` unit
 of deferred work (a table source plus the chain of fragment ops so far),
-the stage timer and attribution fence (``_timed``, ``_block_if``), and
-the host-batch assembly helpers.
+the rebucket step (``_double_agg_groups``), the stage timer and
+attribution fence (``_timed``, ``_block_if``), and the host-batch
+assembly helpers.
 
 Reference parity: the exec-side RowBatch plumbing around Carnot's
 ExecNode chain (``src/carnot/exec/exec_node.h``); here a chain becomes
@@ -14,6 +15,7 @@ one window fold instead of a node-per-op push loop.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import time
 from dataclasses import dataclass
@@ -22,11 +24,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config import get_flag
 from ..types.batch import HostBatch
 from ..types.dtypes import DataType, host_dtypes
 from ..types.relation import Relation
 from ..types.strings import StringDictionary
-from .plan import MemorySourceOp
+from .plan import AggOp, MemorySourceOp
 
 
 class QueryError(Exception):
@@ -76,6 +79,31 @@ def _stream_col_stats(stream: _Stream):
     return merged or None
 
 
+def _double_agg_groups(stream: _Stream) -> _Stream:
+    """The stream with its AggOp's max_groups doubled (a rebucket).
+    Raises QueryError past the ``max_groups_limit`` flag."""
+    limit = get_flag("max_groups_limit")
+    chain = []
+    doubled = False
+    for op in stream.chain:
+        if isinstance(op, AggOp) and not doubled:
+            g2 = op.max_groups * 2
+            if g2 > limit:
+                raise QueryError(
+                    f"group-by overflow at max_groups={op.max_groups}; "
+                    f"rebucketing past the {limit} cap refused "
+                    "(PIXIE_TPU_MAX_GROUPS_LIMIT)"
+                )
+            chain.append(dataclasses.replace(op, max_groups=g2))
+            doubled = True
+        else:
+            chain.append(op)
+    if not doubled:
+        raise AssertionError("no AggOp in overflowing chain")
+    return _Stream(stream.relation, stream.dicts, chain, stream.source,
+                   stream.source_op)
+
+
 @contextlib.contextmanager
 def _timed(stats, stage: str):
     """Stage timer: adds the host seconds spent inside it to ``stats``
@@ -103,7 +131,8 @@ def _block_if(stats, device: torch.device) -> None:
 def _to_host_batch(meta_list, cols, valid, limit=None) -> HostBatch:
     """The rows of ``cols`` where ``valid`` holds (the first ``limit`` of
     them when given), as a host batch. The rows are gathered on the
-    device, so only they cross to the host."""
+    device, so only they cross to the host; a uint64 plane (UINT128) is
+    gathered through its int64 view and viewed back on the host."""
     idx = torch.nonzero(valid).flatten()
     if limit is not None:
         idx = idx[:limit]
@@ -129,7 +158,7 @@ def _to_host_batch(meta_list, cols, valid, limit=None) -> HostBatch:
             rel_items.append((m.name, DataType.STRING))
             continue
         out_cols[m.name] = tuple(
-            p.index_select(0, idx).cpu().numpy().astype(h, copy=False)
+            _rows(p, idx).astype(h, copy=False)
             for p, h in zip(cols[m.name], host_dtypes(m.dtype))
         )
         if m.dict is not None:
@@ -138,6 +167,14 @@ def _to_host_batch(meta_list, cols, valid, limit=None) -> HostBatch:
     return HostBatch(
         relation=Relation(rel_items), cols=out_cols, length=len(idx), dicts=dicts
     )
+
+
+def _rows(p, idx) -> np.ndarray:
+    if p.dtype == torch.uint64:
+        return p.view(torch.int64).index_select(0, idx).cpu().numpy().view(
+            np.uint64
+        )
+    return p.index_select(0, idx).cpu().numpy()
 
 
 def _empty_host_batch(relation, dicts=None) -> HostBatch:

@@ -65,11 +65,16 @@ def _compress(means, weights, k: int, ordered: bool = False):
         torch.floor(_knorm(qmid) * k).to(torch.int64), 0, k - 1
     )
     gid = torch.arange(g, device=means.device)[:, None].expand(g, m)
-    flat = torch.where(weights_s > 0, gid * k + bins, g * k).reshape(-1)
+    # Every slot adds into its own group's bin, the empty ones (weight 0,
+    # so weight and mass 0) too. The JAX package sends empty slots to one
+    # trash bin instead; on the card that serialises the atomics of every
+    # empty slot on one address (2^25 histogram bins at 4096 groups),
+    # while adding zeros changes no sum.
+    flat = (gid * k + bins).reshape(-1)
 
-    z = torch.zeros(g * k + 1, dtype=torch.float32, device=means.device)
-    new_w = z.clone().index_add_(0, flat, weights_s.reshape(-1))[:-1]
-    new_mw = z.index_add_(0, flat, (means_s * weights_s).reshape(-1))[:-1]
+    z = torch.zeros(g * k, dtype=torch.float32, device=means.device)
+    new_w = z.clone().index_add_(0, flat, weights_s.reshape(-1))
+    new_mw = z.index_add_(0, flat, (means_s * weights_s).reshape(-1))
     new_w = new_w.reshape(g, k)
     new_means = torch.where(
         new_w > 0, new_mw.reshape(g, k) / torch.clamp(new_w, min=1e-30), 0.0

@@ -3,10 +3,11 @@
 Reference parity: ``src/carnot/funcs/funcs.cc:30`` RegisterFuncsOrDie.
 """
 
-from . import json_ops, math_ops, math_sketches
+from . import collections, json_ops, math_ops, math_sketches
 
 
 def register_all(reg):
     math_ops.register(reg)
     math_sketches.register(reg)
+    collections.register(reg)
     json_ops.register(reg)

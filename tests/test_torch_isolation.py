@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``pixie_tpu_torch/`` (nor
 ``chip_smoke.py`` or ``chip_ab.py``) imports JAX or the JAX package, a CPU
 query through every module of the window path (device cache, sketches,
-zone skipping, pipeline) leaves neither in ``sys.modules``, and nothing
-falls back to the CPU or to a plain version on its own."""
+zone skipping, pipeline) and the group-by over UINT128 keys (the
+hash form, the ``any`` UDA) leaves neither in ``sys.modules``, and
+nothing falls back to the CPU or to a plain version on its own."""
 
 import ast
 import os
@@ -66,8 +67,18 @@ rows = eng.execute_query(
 assert rows["v"].tolist() == list(range(2500, 2510)), rows
 st = eng.last_stats
 assert (st.resident_windows, st.skipped_windows) == (1, 2), st
+eng.append_data("p", {"time_": np.arange(3000),
+                      "upid": np.stack([np.arange(3000) % 7,
+                                        np.arange(3000) % 5], 1).astype(np.uint64),
+                      "pod": ["a", "b", "c"] * 1000, "v": np.arange(3000)})
+out = eng.execute_query(
+    "import px\\ndf = px.DataFrame(table='p')\\n"
+    "px.display(df.groupby('upid').agg(n=('v', px.count), pod=('pod', px.any)))"
+)["output"].to_pydict()
+assert sorted(out["n"].tolist()) == [85] * 10 + [86] * 25, out
 for mod in ("exec.pipeline", "exec.zoneskip", "exec.stream",
-            "table_store.device_cache", "table_store.sketches", "ops.hll"):
+            "table_store.device_cache", "table_store.sketches", "ops.hll",
+            "ops.groupby", "udf.builtins.collections"):
     assert "pixie_tpu_torch." + mod in sys.modules, mod
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]

@@ -6,6 +6,7 @@ import enum
 
 import pytest
 
+from pixie_tpu.ingest import schemas as jax_schemas
 from pixie_tpu.planner import CompilerState as JaxCompilerState
 from pixie_tpu.planner import compile_pxl as jax_compile_pxl
 from pixie_tpu.scripts import load_script as jax_load_script
@@ -34,10 +35,23 @@ df = df.groupby(['service', 'req_path']).agg(
 px.display(df)
 """
 
+# The upid-keyed scripts (group-bys without a dense key domain) and the
+# tables they read.
+UPID_SCRIPTS = ("px/upids", "px/pods", "px/pid_memory_usage",
+                "px/mysql_flow_graph", "px/pgsql_flow_graph",
+                "px/redis_flow_graph")
+UPID_TABLES = {
+    "process_stats": jax_schemas.PROCESS_STATS_RELATION,
+    "mysql_events": jax_schemas.MYSQL_EVENTS_RELATION,
+    "pgsql_events": jax_schemas.PGSQL_EVENTS_RELATION,
+    "redis_events": jax_schemas.REDIS_EVENTS_RELATION,
+}
+
 SCRIPTS = {
     "http_stats": lambda: load_script("px/http_stats"),
     "http_stats_f64": lambda: HTTP_STATS_F64,
     "service_stats": lambda: load_script("px/service_stats"),
+    **{name: (lambda _n=name: load_script(_n)) for name in UPID_SCRIPTS},
 }
 
 
@@ -65,14 +79,16 @@ def _plan_shape(plan):
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
 def test_compile_pxl_matches_jax(script):
     q = SCRIPTS[script]()
+    tables = {"http_events": JaxRelation(
+        [(n, JaxDataType[t]) for n, t in HTTP_EVENTS]), **UPID_TABLES}
     jax_state = JaxCompilerState(
-        schemas={"http_events": JaxRelation(
-            [(n, JaxDataType[t]) for n, t in HTTP_EVENTS])},
-        registry=jax_registry(), now_ns=1,
+        schemas=tables, registry=jax_registry(), now_ns=1,
     )
     state = CompilerState(
-        schemas={"http_events": Relation(
-            [(n, DataType[t]) for n, t in HTTP_EVENTS])},
+        schemas={
+            name: Relation([(n, DataType[t.name]) for n, t in rel.items()])
+            for name, rel in tables.items()
+        },
         registry=default_registry(), now_ns=1,
     )
     ref = jax_compile_pxl(q, jax_state)
@@ -81,7 +97,9 @@ def test_compile_pxl_matches_jax(script):
     assert got.outputs == ref.outputs == ["output"]
 
 
-@pytest.mark.parametrize("name", ["px/http_stats", "px/service_stats"])
+@pytest.mark.parametrize(
+    "name", ["px/http_stats", "px/service_stats", *UPID_SCRIPTS]
+)
 def test_script_copies_match_jax_package(name):
     assert load_script(name) == jax_load_script(name).pxl
 
