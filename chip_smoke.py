@@ -47,13 +47,25 @@ without them. In order it:
    groupby_impl form (sort, hash), with the rebuckets, the host syncs
    per window (by the line that made them), the hist_fold launches and
    the card's idle share of each;
-7. prints one ``{"kernels": [...]}`` line and, last, the device line.
+7. the joins phase, each answer checked against numpy with bench.py's
+   assertions: px/http_request_stats over the resident main replay
+   (after the tail phase), px/service_resource_usage over the group_by
+   phase's process_stats and a small http_events table of its pods,
+   px/net_flow_graph over 2^23 conn_stats rows (bench.py's recipe, seed
+   11, 48 pods), bench.py's three join shapes at 2^22 rows a side
+   (device_join: the fused lookup join; device_join_skew: radix;
+   device_join_select: zone-skipped probe windows) and the skew shape
+   forced to single, sorted and radix; each query prints its
+   JoinDecision, three timed turns after a warm-up, the host syncs per
+   probe window and the card's idle share;
+8. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -555,6 +567,13 @@ def check_hist_fold(replay, device) -> dict:
             lambda i, v: hist_fold(i, v, n_slots), inputs),
         "plain_ms": event_ms(
             lambda i, v: hist_fold_reference(i, v, n_slots), inputs),
+        # index_add_ of the same weights and weighted sums into the
+        # [slots + 1, 2] output (the trash row included).
+        "library_ms": event_ms(
+            lambda i, wv: torch.zeros(n_slots + 1, 2, device=i.device)
+            .index_add_(0, i, wv),
+            [(i.long(), torch.stack([torch.ones_like(v), v], 1))
+             for i, v in inputs]),
         **_bound(WINDOW * 8 + n_slots * 8, WINDOW * 2),
     })
     del ids, vals, inputs
@@ -1101,13 +1120,12 @@ def _run_form(eng, name: str, form: str):
         clear_flag("groupby_impl")
 
 
-def count_syncs(eng, name: str, form: str) -> dict:
-    """One query under ``torch.cuda.set_sync_debug_mode("warn")``: each
+def sync_sites(run, fold_fns=("window_state", "merge_states")):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")``: each
     host sync the card's PyTorch flags is one warning, from any thread
     (the final reads of the result included). Each is attributed to the
-    innermost line of the port that made it; ``fold_syncs`` counts those
-    made inside a window's fold or merge (``window_state``,
-    ``merge_states``), the rest are finalize reads."""
+    innermost line of the port that made it; ``fold`` counts those made
+    inside one of ``fold_fns``. Returns (total, fold, sites)."""
     import collections
     import traceback
     import warnings
@@ -1128,18 +1146,24 @@ def count_syncs(eng, name: str, form: str) -> dict:
             where = (f.filename.split("pixie_tpu_torch/")[-1]
                      + f":{f.lineno}")
         sites[where] += 1
-        in_fold[0] += any(f.name in ("window_state", "merge_states")
-                          for f in stack)
+        in_fold[0] += any(f.name in fold_fns for f in stack)
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _run_form(eng, name, form)
+            run()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    total, fold = sum(sites.values()), in_fold[0]
+    return sum(sites.values()), in_fold[0], sites
+
+
+def count_syncs(eng, name: str, form: str) -> dict:
+    """One query's host syncs (``sync_sites``); ``fold_syncs`` counts
+    those made inside a window's fold or merge (``window_state``,
+    ``merge_states``), the rest are finalize reads."""
+    total, fold, sites = sync_sites(lambda: _run_form(eng, name, form))
     windows = eng.last_stats.windows
     return {"syncs": total, "fold_syncs": fold, "windows_folded": windows,
             "syncs_per_window": total / windows,
@@ -1147,14 +1171,16 @@ def count_syncs(eng, name: str, form: str) -> dict:
             "sync_sites": dict(sites.most_common(8))}
 
 
-def form_busy(eng, name: str, form: str) -> dict:
-    """One query under torch.profiler: device busy time against wall
-    time (the idle share), and the four largest device ops."""
+def busy_share(run) -> dict:
+    """``run()`` under torch.profiler: device busy time against wall time
+    (the idle share), and the four largest device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _out, wall = _run_form(eng, name, form)
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
     per_op = sorted(
         ((getattr(e, "self_device_time_total",
                   getattr(e, "self_cuda_time_total", 0.0)), e.key)
@@ -1167,6 +1193,11 @@ def form_busy(eng, name: str, form: str) -> dict:
             "idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall),
             "top_device_ops": [{"op": k[:70], "s": us / 1e6}
                                for us, k in per_op[:4]]}
+
+
+def form_busy(eng, name: str, form: str) -> dict:
+    """One query's idle share and top device ops (``busy_share``)."""
+    return busy_share(lambda: _run_form(eng, name, form))
 
 
 def probe_uint64(device) -> dict:
@@ -1285,7 +1316,477 @@ def phase_group_by(device) -> dict:
             assert rec[form]["rebuckets"] == 3, (name, form, rec[form])
     for form in GB_FORMS:
         assert launches["rss_quantiles"][form]["hist_fold"] > 0, launches
+    # The joins phase's query over this phase's resident process_stats.
+    rec = service_resource_usage(eng, ps)
+    print(json.dumps({"phase": "joins", "query": "px/service_resource_usage",
+                      "http_rows": SRU_HTTP_ROWS, **rec}))
     return {f: launches["rss_quantiles"][f]["hist_fold"] for f in GB_FORMS}
+
+
+# -- joins and unions -----------------------------------------------------------
+JOIN_ROWS = 1 << 22  # bench.py's 16M / 4, each side of its join shapes
+NFG_ROWS = 1 << 23  # bench.py's 16M / 2 conn_stats rows
+NFG_PODS = 48
+SRU_HTTP_ROWS = 1 << 16
+# px/http_request_stats's table: 2^24 requests over 5 minutes (Pixie's
+# scripts default to start_time '-5m'), about 56k requests/s, a share of
+# them kubelet /healthz probes.
+HTTP_ROWS = 1 << 24
+HTTP_SPAN_S = 300
+HTTP_T0 = 1_760_000_000 * 1_000_000_000  # October 2025, in ns
+HEALTHZ_SHARE = 0.05
+
+# bench.py's ``_JOIN_BOTH_SIDES_QUERY``: group keys from both sides, so
+# eager aggregation cannot remove the join.
+JOIN_BOTH_SIDES = """import px
+l = px.DataFrame(table='conn_l')
+r = px.DataFrame(table='conn_r')
+g = l.merge(r, how='inner', left_on=['k'], right_on=['k'], suffixes=['', '_r'])
+out = g.groupby(['b', 'c']).agg(n=('v', px.count), s=('v', px.sum))
+px.display(out)
+"""
+
+# bench.py's device_join query: rewritten by eager aggregation into the
+# fused lookup join.
+JOIN_FUSED = """import px
+l = px.DataFrame(table='conn_l')
+r = px.DataFrame(table='conn_r')
+g = l.merge(r, how='inner', left_on=['k'], right_on=['k'], suffixes=['', '_r'])
+out = g.groupby('b').agg(n=('v', px.count), s=('v', px.sum))
+px.display(out)
+"""
+
+
+def join_query(eng, query: str, check, max_rows: int = 10_000,
+               strategy: str | None = None) -> dict:
+    """One join query: a checked warm-up, three timed turns (each
+    checked), one turn counting host syncs by line and one under
+    torch.profiler. The kernels' launch counters are set to 0 before the
+    timed turns and read after them. ``driver_syncs`` are the syncs made
+    inside the device join drivers; per probe window (each dispatch read
+    back) they are the join drivers' readbacks and staging copies, the rest
+    are the aggregates' finalize reads and the joins' materializations."""
+    from pixie_tpu_torch.config import clear_flag, set_flag
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    def run():
+        return eng.execute_query(query, max_output_rows=max_rows)["output"]
+
+    if strategy is not None:
+        set_flag("join_strategy", strategy)
+    try:
+        check(run())
+        secs = []
+        dense_fold.launches = hist_fold.launches = 0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run()
+            secs.append(time.perf_counter() - t0)
+            check(out)
+        launches = {"dense_fold": dense_fold.launches / 3,
+                    "hist_fold": hist_fold.launches / 3}
+        jd = eng.last_join_decision
+        st = eng.last_stats
+        total, in_driver, sites = sync_sites(
+            run, fold_fns=("_join_device", "_join_device_windowed"))
+        busy = busy_share(run)
+    finally:
+        if strategy is not None:
+            clear_flag("join_strategy")
+    windows = jd.windows if jd is not None else 0
+    return {
+        "decision": dataclasses.asdict(jd) if jd is not None else None,
+        "secs": secs, "median_secs": float(np.median(secs)),
+        "launches_per_query": launches,
+        "join_retries": st.join_retries, "rebuckets": st.rebuckets,
+        "windows_folded": st.windows,
+        "syncs": total, "probe_windows": windows,
+        "driver_syncs": in_driver,
+        "syncs_per_probe_window": in_driver / windows if windows else None,
+        "sync_sites": dict(sites.most_common(8)),
+        **busy, "checked": True,
+    }
+
+
+def make_http_traffic(n: int, seed: int = SEED + 2):
+    """The joins phase's own http_events: bench.py's replay columns, plus
+    /healthz probes (path id N_PATHS) on HEALTHZ_SHARE of the rows and
+    ``time_`` drawn over HTTP_SPAN_S seconds from HTTP_T0 (sorted), so
+    px/http_request_stats sees many 1 s bins and a filter that drops
+    rows."""
+    svc, path, lat, status = make_replay(n, seed)
+    rng = np.random.default_rng(seed)
+    path = np.where(rng.random(n) < HEALTHZ_SHARE, N_PATHS, path).astype(np.int32)
+    time_ = HTTP_T0 + np.sort(rng.integers(0, HTTP_SPAN_S * 1_000_000_000, n))
+    return svc, path, lat, status, time_
+
+
+def load_http_traffic(traffic, device):
+    """An Engine holding ``traffic`` as http_events, appended in
+    WINDOW-row batches; its req_path dictionary ends with /healthz."""
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.types import DataType, HostBatch, Relation, StringDictionary
+
+    svc, path, lat, status, time_ = traffic
+    rel = Relation([(n, getattr(DataType, t)) for n, t in RELATION])
+    dicts = {
+        "service": StringDictionary([f"svc-{i}" for i in range(N_SERVICES)]),
+        "req_path": StringDictionary(
+            [f"/api/v1/ep{i}" for i in range(N_PATHS)] + ["/healthz"]),
+    }
+    eng = Engine(window_rows=WINDOW, device=device)
+    eng.create_table("http_events")
+    t0 = time.perf_counter()
+    for off in range(0, len(svc), WINDOW):
+        s = slice(off, off + WINDOW)
+        eng.append_data("http_events", HostBatch(relation=rel, cols={
+            "time_": (time_[s],), "latency_ns": (lat[s],),
+            "resp_status": (status[s],), "service": (svc[s],),
+            "req_path": (path[s],),
+        }, length=len(svc[s]), dicts=dicts))
+    eng.append_secs = time.perf_counter() - t0
+    return eng
+
+
+def check_http_request_stats(traffic):
+    """numpy's px/http_request_stats over ``traffic``: /healthz rows
+    dropped, then per (service, 1 s bin) count and mean latency, joined
+    to the service's count; frac = count / total."""
+    svc, path, lat, _status, time_ = traffic
+    keep = path != N_PATHS
+    assert 0 < int((~keep).sum()) < len(svc), "no /healthz rows to drop"
+    svc, lat, sec = svc[keep], lat[keep], time_[keep] // 1_000_000_000
+    sec0 = int(sec.min())
+    n_win = int(sec.max()) - sec0 + 1
+    assert n_win > 1, "one 1 s bin"
+    key = svc.astype(np.int64) * n_win + (sec - sec0)
+    cnt = np.bincount(key, minlength=N_SERVICES * n_win)
+    mean = np.bincount(key, weights=lat.astype(np.float64),
+                       minlength=N_SERVICES * n_win) / np.maximum(cnt, 1)
+    total = np.bincount(svc, minlength=N_SERVICES)
+    live = np.flatnonzero(cnt)
+
+    def check(out):
+        got = out.to_pydict(decode_strings=False)
+        assert np.all(got["window"] % 1_000_000_000 == 0), "bin edges"
+        gkey = got["service"].astype(np.int64) * n_win + (
+            got["window"] // 1_000_000_000 - sec0)
+        order = np.argsort(gkey)
+        assert np.array_equal(gkey[order], live), "http_request_stats keys"
+        np.testing.assert_array_equal(got["n"][order], cnt[live])
+        np.testing.assert_allclose(got["lat_mean"][order], mean[live],
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(got["total"][order],
+                                      total[live // n_win])
+        np.testing.assert_allclose(got["frac"][order],
+                                   cnt[live] / total[live // n_win], rtol=1e-6)
+    check.groups = len(live)
+    return check
+
+
+def make_conn_stats(n: int):
+    """bench.py's conn_stats recipe (``_shape_net_flow_graph``): seed 11,
+    48 pods, pod i owns address i."""
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, NFG_PODS, n).astype(np.int32)
+    dst = rng.integers(0, NFG_PODS, n).astype(np.int32)
+    sent = rng.integers(64, 1 << 20, n)
+    recv = rng.integers(64, 1 << 20, n)
+    return src, dst, sent, recv
+
+
+def load_conn_stats(cs, device):
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.types import DataType, HostBatch, Relation, StringDictionary
+
+    src, dst, sent, recv = cs
+    rel = Relation([("time_", DataType.TIME64NS),
+                    ("src_addr", DataType.STRING),
+                    ("src_pod", DataType.STRING),
+                    ("remote_addr", DataType.STRING),
+                    ("bytes_sent", DataType.INT64),
+                    ("bytes_recv", DataType.INT64)])
+    pods = StringDictionary([f"ns/pod-{i}" for i in range(NFG_PODS)])
+    addrs = StringDictionary([f"10.1.{i // 250}.{i % 250}"
+                              for i in range(NFG_PODS)])
+    eng = Engine(window_rows=WINDOW, device=device)
+    eng.create_table("conn_stats")
+    t0 = time.perf_counter()
+    for off in range(0, len(src), WINDOW):
+        s = slice(off, off + WINDOW)
+        m = len(src[s])
+        eng.append_data("conn_stats", HostBatch(relation=rel, cols={
+            "time_": (np.arange(off, off + m, dtype=np.int64),),
+            "src_addr": (src[s],), "src_pod": (src[s],),
+            "remote_addr": (dst[s],), "bytes_sent": (sent[s],),
+            "bytes_recv": (recv[s],),
+        }, length=m, dicts={"src_addr": addrs, "src_pod": pods,
+                            "remote_addr": addrs}))
+    eng.append_secs = time.perf_counter() - t0
+    return eng
+
+
+def check_net_flow_graph(cs):
+    src, dst, sent, recv = cs
+    key = src.astype(np.int64) * NFG_PODS + dst
+    g = NFG_PODS * NFG_PODS
+    cnt = np.bincount(key, minlength=g)
+    s_sent = np.bincount(key, weights=sent.astype(np.float64), minlength=g)
+    s_recv = np.bincount(key, weights=recv.astype(np.float64), minlength=g)
+
+    def check(out):
+        got = out.to_pydict(decode_strings=False)
+        gkey = got["src_pod"].astype(np.int64) * NFG_PODS + got["src_pod_dst"]
+        order = np.argsort(gkey)
+        live = np.flatnonzero(cnt)
+        assert np.array_equal(gkey[order], live), "net_flow_graph keys"
+        np.testing.assert_array_equal(got["bytes_sent"][order],
+                                      s_sent[live].astype(np.int64))
+        np.testing.assert_array_equal(got["bytes_recv"][order],
+                                      s_recv[live].astype(np.int64))
+    return check
+
+
+def service_resource_usage(eng, ps: dict) -> dict:
+    """px/service_resource_usage on the group_by phase's engine: a small
+    http_events table whose pods are drawn from that phase's 2,000 pods
+    (service = pod mod 32, its own dictionary of the same names), joined
+    to the resident process_stats."""
+    from pixie_tpu_torch.scripts import load_script
+    from pixie_tpu_torch.types import DataType, HostBatch, Relation, StringDictionary
+
+    rng = np.random.default_rng(SEED + 5)
+    n = SRU_HTTP_ROWS
+    pod = rng.integers(0, GB_PODS, n).astype(np.int32)
+    svc = (pod % N_SERVICES).astype(np.int32)
+    rel = Relation([("time_", DataType.TIME64NS),
+                    ("latency_ns", DataType.INT64),
+                    ("service", DataType.STRING), ("pod", DataType.STRING)])
+    eng.append_data("http_events", HostBatch(relation=rel, cols={
+        "time_": (np.arange(n, dtype=np.int64),),
+        "latency_ns": (rng.integers(1_000, 100_000_000, n),),
+        "service": (svc,), "pod": (pod,),
+    }, length=n, dicts={
+        "service": StringDictionary([f"svc-{i}" for i in range(N_SERVICES)]),
+        "pod": StringDictionary(ps["pods"]),
+    }))
+    u, cols, pod_of = ps["u"], ps["cols"], ps["pod_of"]
+    row_pod = pod_of[u]
+    ut = np.bincount(row_pod, weights=cols["cpu_utime_ns"].astype(np.float64),
+                     minlength=GB_PODS)
+    kt = np.bincount(row_pod, weights=cols["cpu_ktime_ns"].astype(np.float64),
+                     minlength=GB_PODS)
+    rss = np.full(GB_PODS, np.iinfo(np.int64).min, dtype=np.int64)
+    np.maximum.at(rss, row_pod, cols["rss_bytes"])
+    reqs = np.bincount(pod, minlength=GB_PODS)
+    seen = reqs > 0
+    psvc = np.arange(GB_PODS) % N_SERVICES
+    want = {
+        "cpu_utime_ns": np.bincount(psvc[seen], weights=ut[seen],
+                                    minlength=N_SERVICES),
+        "cpu_ktime_ns": np.bincount(psvc[seen], weights=kt[seen],
+                                    minlength=N_SERVICES),
+        "rss": np.bincount(psvc[seen], weights=rss[seen].astype(np.float64),
+                           minlength=N_SERVICES),
+        "requests": np.bincount(psvc, weights=reqs, minlength=N_SERVICES),
+    }
+
+    def check(out):
+        got = out.to_pydict(decode_strings=False)
+        order = np.argsort(got["service"])
+        assert np.array_equal(got["service"][order], np.arange(N_SERVICES))
+        for c, w in want.items():
+            # float64 numpy sums of int64 values up to ~1e19: compare in
+            # float64 (the card's int64 sums are exact).
+            np.testing.assert_allclose(got[c][order].astype(np.float64), w,
+                                       rtol=1e-12, err_msg=c)
+
+    rec = join_query(eng, load_script("px/service_resource_usage"), check)
+    assert rec["decision"]["strategy"] == "host_dict", rec["decision"]
+    return rec
+
+
+def make_join_shape(shape: str, n: int):
+    """bench.py's join replays: ``device_join`` (seed 19), ``skew``
+    (``device_join_skew``, seed 23, zipf build keys) and ``select``
+    (``device_join_select``, seed 29, ascending probe keys, the build
+    side over the top eighth of the key space)."""
+    if shape == "device_join":
+        rng = np.random.default_rng(19)
+        n_keys = max(n // 2, 1)
+        lk = rng.integers(0, n_keys, n)
+        lb = rng.integers(0, 16, n)
+        rk = rng.integers(0, n_keys, n)
+        rv = rng.integers(0, 1000, n)
+        rc = np.zeros(n, dtype=np.int64)
+    elif shape == "skew":
+        rng = np.random.default_rng(23)
+        n_keys = max(n // 2, 1)
+        lk = rng.integers(0, n_keys, n)
+        lb = rng.integers(0, 16, n)
+        rk = (np.minimum(rng.zipf(1.5, n), n_keys) - 1) * 2654435761 % n_keys
+        rc = rng.integers(0, 8, n)
+        rv = rng.integers(0, 1000, n)
+    else:
+        rng = np.random.default_rng(29)
+        n_keys = max(n // 2, 2)
+        lk = (np.arange(n, dtype=np.int64) * n_keys) // n + rng.integers(
+            0, max(n_keys // 256, 1), n)
+        np.minimum(lk, n_keys - 1, out=lk)
+        lb = rng.integers(0, 16, n)
+        n_r = max(n // 4, 1)
+        rk = rng.integers(n_keys - n_keys // 8, n_keys, n_r)
+        rc = rng.integers(0, 8, n_r)
+        rv = rng.integers(0, 1000, n_r)
+    return {"n_keys": n_keys, "lk": lk, "lb": lb, "rk": rk, "rc": rc,
+            "rv": rv}
+
+
+def load_join_tables(js: dict, device):
+    """conn_l(time_, k, b) and conn_r(time_, k, c, v) in WINDOW-row
+    appends (bench.py's ``_join_two_table_engines``)."""
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.types import DataType, HostBatch, Relation
+
+    eng = Engine(window_rows=WINDOW, device=device)
+    t0 = time.perf_counter()
+    for name, cols in (
+        ("conn_l", {"k": js["lk"], "b": js["lb"]}),
+        ("conn_r", {"k": js["rk"], "c": js["rc"], "v": js["rv"]}),
+    ):
+        rel = Relation([("time_", DataType.TIME64NS)]
+                       + [(c, DataType.INT64) for c in cols])
+        eng.create_table(name)
+        n = len(cols["k"])
+        for off in range(0, n, WINDOW):
+            m = min(WINDOW, n - off)
+            planes = {"time_": (np.arange(off, off + m, dtype=np.int64),)}
+            planes.update({c: (v[off:off + m],) for c, v in cols.items()})
+            eng.append_data(name, HostBatch(relation=rel, cols=planes,
+                                            length=m))
+    eng.append_secs = time.perf_counter() - t0
+    return eng
+
+
+def check_join_fused(js: dict):
+    """bench.py's device_join check: per b, the count and sum of the
+    build rows each probe row meets."""
+    lk, lb, rk, rv, n_keys = (js[k] for k in ("lk", "lb", "rk", "rv",
+                                                "n_keys"))
+    cnt_r = np.bincount(rk, minlength=n_keys)
+    sum_r = np.bincount(rk, weights=rv.astype(np.float64), minlength=n_keys)
+    ref_n = np.bincount(lb, weights=cnt_r[lk].astype(np.float64), minlength=16)
+    ref_s = np.bincount(lb, weights=sum_r[lk], minlength=16)
+
+    def check(out):
+        got = out.to_pydict()
+        order = np.argsort(got["b"])
+        present = np.nonzero(ref_n)[0]
+        assert np.array_equal(got["b"][order], present), "join keys mismatch"
+        np.testing.assert_allclose(got["n"][order], ref_n[present], rtol=1e-9)
+        np.testing.assert_allclose(got["s"][order], ref_s[present], rtol=1e-9)
+    return check
+
+
+def check_join_both_sides(js: dict):
+    """bench.py's ``_check_join_both_sides``: per (b, c), the count and
+    sum of the joined rows, from per-key histograms contracted over the
+    key axis."""
+    lk, lb, rk, rc, rv, n_keys = (js[k] for k in ("lk", "lb", "rk", "rc",
+                                                    "rv", "n_keys"))
+    nb_, nc_ = 16, 8
+    m_l = np.bincount(lk * nb_ + lb, minlength=n_keys * nb_).reshape(
+        n_keys, nb_).astype(np.float64)
+    cnt_r = np.bincount(rk * nc_ + rc, minlength=n_keys * nc_).reshape(
+        n_keys, nc_).astype(np.float64)
+    sum_r = np.bincount(rk * nc_ + rc, weights=rv.astype(np.float64),
+                        minlength=n_keys * nc_).reshape(n_keys, nc_)
+    ref_n = (m_l.T @ cnt_r).reshape(-1)
+    ref_s = (m_l.T @ sum_r).reshape(-1)
+    present = np.nonzero(ref_n)[0]
+
+    def check(out):
+        got = out.to_pydict()
+        gkey = got["b"].astype(np.int64) * nc_ + got["c"]
+        order = np.argsort(gkey)
+        assert np.array_equal(gkey[order], present), "join_both keys mismatch"
+        np.testing.assert_allclose(got["n"][order], ref_n[present], rtol=1e-9)
+        np.testing.assert_allclose(got["s"][order], ref_s[present], rtol=1e-9)
+    return check
+
+
+def phase_joins_http(device) -> None:
+    """px/http_request_stats over its own HTTP_ROWS-row http_events:
+    HTTP_SPAN_S seconds of traffic (HTTP_SPAN_S 1 s bins per service)
+    with /healthz probes for the script's filter to drop."""
+    from pixie_tpu_torch.scripts import load_script
+
+    traffic = make_http_traffic(HTTP_ROWS)
+    eng = load_http_traffic(traffic, device)
+    print(json.dumps({"phase": "joins_append", "table": "http_events",
+                      "rows": HTTP_ROWS, "span_s": HTTP_SPAN_S,
+                      "secs": eng.append_secs}))
+    check = check_http_request_stats(traffic)
+    rec = join_query(eng, load_script("px/http_request_stats"), check,
+                     max_rows=2 * N_SERVICES * HTTP_SPAN_S)
+    print(json.dumps({"phase": "joins", "query": "px/http_request_stats",
+                      "rows": HTTP_ROWS, "groups": check.groups, **rec}))
+    assert rec["decision"]["strategy"] == "host_dict", rec["decision"]
+
+
+def phase_joins(device) -> None:
+    """The joins phase's own tables: px/http_request_stats over 2^24
+    http_events rows, px/net_flow_graph over 2^23 conn_stats rows, then bench.py's three join shapes at 2^22 rows a
+    side (device_join -> fused, skew -> radix, select -> sorted or radix
+    with zone-skipped probe windows), and the skew shape again forced to
+    single, sorted and radix."""
+    import gc
+
+    import torch
+    from pixie_tpu_torch.scripts import load_script
+
+    phase_joins_http(device)
+    gc.collect()
+    cs = make_conn_stats(NFG_ROWS)
+    eng = load_conn_stats(cs, device)
+    print(json.dumps({"phase": "joins_append", "table": "conn_stats",
+                      "rows": NFG_ROWS, "secs": eng.append_secs}))
+    rec = join_query(eng, load_script("px/net_flow_graph"),
+                     check_net_flow_graph(cs))
+    print(json.dumps({"phase": "joins", "query": "px/net_flow_graph",
+                      "rows": NFG_ROWS, **rec}))
+    assert rec["decision"]["strategy"] == "host_dict", rec["decision"]
+    del eng, cs
+    gc.collect()
+
+    expect = {"device_join": ("fused",), "skew": ("radix",),
+              "select": ("sorted", "radix")}
+    for shape in ("device_join", "skew", "select"):
+        js = make_join_shape(shape, JOIN_ROWS)
+        eng = load_join_tables(js, device)
+        print(json.dumps({"phase": "joins_append", "shape": shape,
+                          "rows": [len(js["lk"]), len(js["rk"])],
+                          "secs": eng.append_secs}))
+        if shape == "device_join":
+            query, check = JOIN_FUSED, check_join_fused(js)
+        else:
+            query, check = JOIN_BOTH_SIDES, check_join_both_sides(js)
+        rec = join_query(eng, query, check)
+        print(json.dumps({"phase": "joins", "shape": shape, **rec}))
+        d = rec["decision"]
+        assert d["strategy"] in expect[shape], d
+        if shape == "select":
+            assert d["skipped_windows"] > 0, d
+        if shape == "skew":
+            for forced in ("single", "sorted", "radix"):
+                rec = join_query(eng, query, check, strategy=forced)
+                print(json.dumps({"phase": "joins", "shape": shape,
+                                  "forced": forced, **rec}))
+                assert rec["decision"]["strategy"] == forced, rec["decision"]
+        del eng, js
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1343,7 +1844,8 @@ def main() -> int:
         for sh in k["shapes"]:
             print(f"  {k['name']} [{sh['label']}] slots {sh['slots']}: ms "
                   f"{sh['ms']:.4f} device_ms {sh['device_ms']} bound_ms "
-                  f"{sh['bound_ms']:.4f}")
+                  f"{sh['bound_ms']:.4f} library_ms "
+                  f"{sh.get('library_ms', 'not measured')}")
 
     print(json.dumps({"batch_to_digest": profile_digest(replay, device)}))
 
@@ -1360,6 +1862,9 @@ def main() -> int:
     # groupby_impl form (``launches`` stays the steady state's count).
     hist = next(k for k in kernels if k["name"] == "hist_fold")
     hist["launches_group_by"] = phase_group_by(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_joins(device)
     gc.collect()
     torch.cuda.empty_cache()
     phase_eviction(replay, expect, device)

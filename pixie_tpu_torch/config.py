@@ -15,7 +15,7 @@ from __future__ import annotations
 import os
 import threading
 
-_DEFAULTS: dict[str, int | bool | str] = {}
+_DEFAULTS: dict[str, int | float | bool | str] = {}
 _DOCS: dict[str, str] = {}
 _CHOICES: dict[str, tuple] = {}
 _OVERRIDES: dict[str, int | bool | str] = {}
@@ -42,6 +42,8 @@ def _parse(name: str, value) -> int | bool | str:
         if isinstance(value, str):
             return value.strip().lower() in ("1", "true", "yes", "on")
         return bool(value)
+    if isinstance(_DEFAULTS[name], float):
+        return float(value)
     return int(value)
 
 
@@ -102,3 +104,35 @@ define_flag("scan_zone_skip", True,
             "query's FilterOp predicate (exec/zoneskip.py) — checked BEFORE "
             "stage/decode, so selective scans over cold data never decode "
             "dead windows. Generalizes join_zone_skip to plain table scans.")
+define_flag("join_probe_window_rows", 1 << 20,
+            "Probe rows per device-join dispatch for inner/left N:M "
+            "joins: the build side is sorted and staged on device ONCE "
+            "per query and probe windows stream through the prefetch "
+            "pipeline. 0 = single-shot kernel over the whole probe side.")
+define_flag("join_strategy", "auto",
+            "N:M join strategy: 'auto' (sketch-guided routing picks "
+            "host-dict / host-hash / single-shot / windowed sorted-probe "
+            "/ windowed radix by shape, device and sketches), or force "
+            "'host', 'single', 'sorted', 'radix' for testing/bench.",
+            choices=("auto", "host", "single", "sorted", "radix"))
+define_flag("join_radix_bits", 8,
+            "Radix bits for the partitioned device join: build keys are "
+            "splitmix64-hashed and partitioned by the top bits, so each "
+            "probe row binary-searches ONE partition instead of the "
+            "whole build side. 0 disables the radix strategy entirely.")
+define_flag("join_capacity_safety", 2.0,
+            "Multiplier on the sketch-estimated join output cardinality "
+            "when sizing the initial device-join output capacity (then "
+            "rounded to a power-of-two bucket). Headroom over the "
+            "NDV-based mean fan-out absorbs moderate key skew; an "
+            "overflow retry reruns the window, so over-sizing is the "
+            "cheaper error.")
+define_flag("join_zone_skip", True,
+            "Skip staging probe windows whose key zone map cannot "
+            "intersect the build side's key range (inner/left windowed "
+            "device joins; left windows emit their null rows host-side).")
+define_flag("device_join_min_rows", 1 << 15,
+            "Inner/left joins whose two inputs hold fewer rows than this "
+            "together try the host dict join first (N:1 builds only); "
+            "larger inputs, right/outer and N:M joins go to the bulk "
+            "strategies.")

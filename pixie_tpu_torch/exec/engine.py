@@ -17,12 +17,20 @@ query's only wait for the device. An attribution run
 each stage, so ``read_s``, ``stage_s``, ``fold_s`` and ``finalize_s``
 hold that stage's device work.
 
+Joins and unions (``exec/joins.py``) take their inputs as they come: a
+join whose build side resolves to a dense-domain table fuses into the
+probe stream's fragment as a lookup (its side tables put on the device
+once per query), every other join and every union materializes its
+inputs and routes by shape, device and sketches. A stream that feeds
+more than one consumer is materialized once and shared, unless it is a
+pure table scan (each consumer re-reads the resident windows).
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card it raises rather than carrying on on the CPU. Not ported
 here: the TPU's scan batching of resident windows (``update_all``,
 which amortises TPU dispatch cost) and the native multi-core CPU fold
-(for the XLA:CPU backend); the result cache, views, joins, unions and
-streaming are later slices of the port.
+(for the XLA:CPU backend); the result cache, views and streaming are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -32,21 +40,31 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import get_flag
 from ..types.batch import HostBatch, bucket_capacity
 from ..udf.registry import Registry, default_registry
-from .fragment import compile_fragment
+from .fragment import _pure_select_map, compile_fragment
+from .joins import (
+    JoinDecision,
+    _join_dispatch,
+    _union_host,
+    stream_join_stats,
+    try_fused_join,
+)
 from .pipeline import WindowPipeline
 from .plan import (
     AggOp,
     ColumnRef,
     FilterOp,
+    JoinOp,
     LimitOp,
     MapOp,
     MemorySourceOp,
     ResultSinkOp,
+    UnionOp,
 )
 from .stream import (
     QueryCancelled,
@@ -109,6 +127,10 @@ class QueryStats:
       stage_secs, stall_secs);
     - ``rebuckets``: group-by overflows refolded at twice the group
       capacity (each refold's windows and rows count again);
+    - ``join_retries``: device-join dispatches rerun at twice their
+      output capacity; ``join_capacity_evictions``: learned join
+      capacities the engine's LRU cache dropped (the JAX package's
+      prometheus counters of both);
     - ``read_s`` (host ring reads), ``stage_s`` (pad, copy, or the
       cache probe for resident windows), ``fold_s`` (filter, maps, UDA
       folds) and ``finalize_s`` (finalize and result assembly): with
@@ -125,6 +147,8 @@ class QueryStats:
     staged_windows: int = 0
     skipped_windows: int = 0
     rebuckets: int = 0
+    join_retries: int = 0
+    join_capacity_evictions: int = 0
     read_s: float = 0.0
     stage_s: float = 0.0
     fold_s: float = 0.0
@@ -168,6 +192,13 @@ class Engine:
         # pipeline_depth flag per query.
         self.pipeline_depth = pipeline_depth
         self.last_stats: Optional[QueryStats] = None
+        # The last query's join routing (joins.JoinDecision: strategy,
+        # swap, capacity, retries, skipped windows), None after a query
+        # without a join.
+        self.last_join_decision: Optional[JoinDecision] = None
+        # Learned join output capacities per (mode, plan, node), LRU
+        # (joins.learned_capacity / remember_capacity).
+        self._join_capacity_cache: dict = {}
 
     @property
     def tables(self) -> dict:
@@ -220,6 +251,7 @@ class Engine:
 
     def execute_plan(self, plan, analyze: bool = False, cancel=None) -> dict:
         stats = QueryStats(sync=analyze)
+        self.last_join_decision = None
         t0 = time.perf_counter()
         try:
             return self._execute_plan(plan, stats, cancel)
@@ -227,9 +259,35 @@ class Engine:
             stats.wall_s = time.perf_counter() - t0
             self.last_stats = stats
 
+    @staticmethod
+    def _plan_fingerprint(plan) -> int:
+        """Structural plan hash (cached on the plan object): keys the
+        joins' learned-capacity cache so a repeated script starts at the
+        output-capacity rung its last run settled on."""
+        fp = getattr(plan, "_fingerprint", None)
+        if fp is None:
+            fp = hash(tuple(
+                (nid, type(n.op).__name__, repr(n.op), tuple(n.inputs))
+                for nid, n in sorted(plan.nodes.items())
+            ))
+            plan._fingerprint = fp
+        return fp
+
     def _execute_plan(self, plan, stats: QueryStats, cancel) -> dict:
         results: dict = {}
         outputs: dict = {}
+        consumers: dict[int, int] = {}
+        for n in plan.nodes.values():
+            for i in n.inputs:
+                consumers[i] = consumers.get(i, 0) + 1
+
+        def mat_input(nid):
+            """Materialize a node's result once; shared by its consumers."""
+            r = results[nid]
+            if not isinstance(r, HostBatch):
+                r = results[nid] = self._run_fragment(r, stats, cancel)
+            return r
+
         for nid in plan.topo_order():
             node = plan.nodes[nid]
             op = node.op
@@ -248,6 +306,8 @@ class Engine:
                 )
             elif isinstance(op, (MapOp, FilterOp, AggOp, LimitOp)):
                 st = results[node.inputs[0]]
+                if isinstance(st, HostBatch):
+                    st = self._as_stream(st)
                 if (st.chain and isinstance(st.chain[-1], LimitOp)) or (
                     isinstance(op, AggOp)
                     and any(isinstance(o, AggOp) for o in st.chain)
@@ -256,14 +316,56 @@ class Engine:
                     # share one: materialize, then chain on the result.
                     st = self._as_stream(self._run_fragment(st, stats, cancel))
                 results[nid] = st.extend(op)
+            elif isinstance(op, JoinOp):
+                fused = try_fused_join(self, nid, node, results, consumers,
+                                       stats, cancel)
+                if fused is not None:
+                    self.last_join_decision = JoinDecision(
+                        strategy="fused",
+                        reason="dense-domain N:1 in-fragment lookup",
+                    )
+                    results[nid] = fused
+                else:
+                    # Ingest-sketch stats are read BEFORE materialization
+                    # (the table provenance dies with the stream); they
+                    # steer build-side choice, capacity and zone skipping.
+                    lstats = stream_join_stats(
+                        results[node.inputs[0]], op.left_on
+                    )
+                    rstats = stream_join_stats(
+                        results[node.inputs[1]], op.right_on
+                    )
+                    left = mat_input(node.inputs[0])
+                    right = mat_input(node.inputs[1])
+                    # No plan-time join capacity yet (the bounds pass is
+                    # not ported): the sketches or the default size it.
+                    results[nid] = _join_dispatch(
+                        left, right, op, self,
+                        left_stats=lstats, right_stats=rstats,
+                        cap_key=(self._plan_fingerprint(plan), nid),
+                        qstats=stats, cancel=cancel,
+                    )
+            elif isinstance(op, UnionOp):
+                results[nid] = _union_host([mat_input(i) for i in node.inputs])
             elif isinstance(op, ResultSinkOp):
-                outputs[op.name] = self._run_fragment(
-                    results[node.inputs[0]], stats, cancel
-                )
+                outputs[op.name] = mat_input(node.inputs[0])
             else:
                 raise NotImplementedError(
                     f"{type(op).__name__} is not in this slice of the port"
                 )
+            # Fan-out of a stream: materialize once and share the batch,
+            # EXCEPT pure table scans: their windows are resident, so
+            # each consumer re-reading them is free, while a materialize
+            # would round-trip the whole table through host memory.
+            if consumers.get(nid, 0) > 1 and isinstance(results[nid], _Stream):
+                st = results[nid]
+                pure_scan = (
+                    isinstance(st.source, list)
+                    and not st.side
+                    and _pure_select_map(st.chain) is not None
+                )
+                if not pure_scan:
+                    results[nid] = self._run_fragment(st, stats, cancel)
         return outputs
 
     @staticmethod
@@ -378,6 +480,24 @@ class Engine:
         for k in ("windows", "stage_secs", "stall_secs"):
             stats.pipeline[k] += c[k]
 
+    def _put_side(self, v):
+        """Put one fused-join side table on the engine's device (numpy
+        tables from a host build; a dense aggregate's planes are there
+        already). Called once per query, when the join fuses."""
+        if isinstance(v, torch.Tensor):
+            return v.to(self.device)
+        if v.dtype == np.uint64:
+            return torch.from_numpy(v.view(np.int64)).to(self.device).view(
+                torch.uint64
+            )
+        return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+
+    @staticmethod
+    def _with_side(cols, stream: _Stream):
+        """A window's planes plus the stream's side tables (read by the
+        fragment's lookup joins); the window's own dict is not changed."""
+        return {**cols, "__side__": stream.side} if stream.side else cols
+
     def _fold_agg_state(self, stream: _Stream, frag, stats: QueryStats, cancel):
         """Stream the source through the fragment's window fold, returning
         the accumulated (unfinalized) group state. No per-window fence."""
@@ -386,6 +506,7 @@ class Engine:
         try:
             for cols, valid, src in pipe:
                 src.handoff()
+                cols = self._with_side(cols, stream)
                 with _timed(stats, "compute"):
                     state = frag.merge_states(state, frag.window_state(cols, valid))
                     _block_if(stats, self.device)
@@ -401,30 +522,49 @@ class Engine:
             self.device, col_stats=_stream_col_stats(stream),
         )
 
+    def _fold_finalize(self, stream: _Stream, frag, stats: QueryStats,
+                       cancel):
+        """Fold the stream through an aggregate fragment and finalize:
+        the [G] output planes, their valid mask and the overflow flag,
+        all still on the device (the fused join's dense build reads them
+        there; ``_agg_result`` takes them to the host)."""
+        stats.fragments.append(frag)
+        state = self._fold_agg_state(stream, frag, stats, cancel)
+        with _timed(stats, "finalize"):
+            return frag.finalize(state)
+
+    def _agg_result(self, stream: _Stream, frag, out_cols, valid, overflow,
+                    stats: QueryStats, cancel) -> HostBatch:
+        """A finalized aggregate's rows on the host, rebucketing while it
+        overflowed (the JAX engine's retry: more distinct keys than
+        max_groups, or an integer key that escaped its stats-derived
+        domain): double max_groups, recompile against the stats as they
+        are now and fold the stream again; past max_groups_limit, raise.
+        One read of the overflow flag per fold."""
+        while True:
+            with _timed(stats, "finalize"):
+                if not bool(overflow):
+                    out = _to_host_batch(frag.out_meta, out_cols, valid)
+                    break
+            del out_cols, valid, overflow
+            stream = _double_agg_groups(stream)
+            frag = self._compile(stream)
+            stats.rebuckets += 1
+            out_cols, valid, overflow = self._fold_finalize(
+                stream, frag, stats, cancel
+            )
+        return _apply_limit(out, frag.limit)
+
     def _run_fragment(self, stream: _Stream, stats: QueryStats,
                       cancel) -> HostBatch:
         frag = self._compile(stream)
-        stats.fragments.append(frag)
         if frag.is_agg:
-            while True:
-                state = self._fold_agg_state(stream, frag, stats, cancel)
-                with _timed(stats, "finalize"):
-                    out_cols, valid, overflow = frag.finalize(state)
-                    # One read of the overflow flag per fold.
-                    if not bool(overflow):
-                        out = _to_host_batch(frag.out_meta, out_cols, valid)
-                        break
-                # Rebucket (the JAX engine's retry): more distinct keys
-                # than max_groups, or an integer key that escaped its
-                # stats-derived domain. Double max_groups, recompile
-                # against the stats as they are now and fold the stream
-                # again; past max_groups_limit, raise.
-                del state, out_cols, valid, overflow
-                stream = _double_agg_groups(stream)
-                frag = self._compile(stream)
-                stats.fragments.append(frag)
-                stats.rebuckets += 1
-            return _apply_limit(out, frag.limit)
+            out_cols, valid, overflow = self._fold_finalize(
+                stream, frag, stats, cancel
+            )
+            return self._agg_result(stream, frag, out_cols, valid, overflow,
+                                    stats, cancel)
+        stats.fragments.append(frag)
 
         # Rows: each window's surviving rows to the host, stopping early
         # once the limit is met.
@@ -433,6 +573,7 @@ class Engine:
         try:
             for cols, valid, src in pipe:
                 src.handoff()
+                cols = self._with_side(cols, stream)
                 with _timed(stats, "compute"):
                     out_cols, out_valid = frag.update(cols, valid)
                     _block_if(stats, self.device)

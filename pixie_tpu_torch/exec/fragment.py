@@ -45,12 +45,22 @@ from ..ops.groupby import (
     regroup_pair,
     scatter_carry,
 )
+from ..ops.groupby import _gather as lookup_gather
 from ..types.dtypes import DataType, device_dtypes, pad_values
 from ..types.relation import Relation
 from ..udf.registry import Registry
 from ..udf.udf import UDADef, apply_cast
 from .expr import BindError, bind_expr
-from .plan import AggOp, ColumnRef, FilterOp, FuncCall, LimitOp, Literal, MapOp
+from .plan import (
+    AggOp,
+    ColumnRef,
+    FilterOp,
+    FuncCall,
+    LimitOp,
+    Literal,
+    LookupJoinOp,
+    MapOp,
+)
 
 # Integer-typed key columns that qualify for stats-derived dense domains.
 _INT_KEY_TYPES = (DataType.INT64, DataType.TIME64NS)
@@ -79,6 +89,13 @@ class CompiledFragment:
     limit: Optional[int] = None  # host-enforced row cap
     # True when the aggregates fold through the dense_fold kernel.
     uses_dense_fold: bool = False
+    # Per-group-col dense domain sizes (empty when the group ids come
+    # from the sort/hash form): the packed key IS the group id.
+    # ``dense_offsets`` shifts stats-derived integer keys to zero base,
+    # ``dense_strides`` scales step-indexed codes (binned time keys).
+    dense_domains: tuple = ()
+    dense_offsets: tuple = ()
+    dense_strides: tuple = ()
 
 
 def _range_valid(cols, valid):
@@ -88,7 +105,7 @@ def _range_valid(cols, valid):
     planes' device (resident windows carry no mask)."""
     if isinstance(valid, tuple):
         lo, hi = valid
-        p = next(iter(cols.values()))[0]
+        p = next(ps for c, ps in cols.items() if c != "__side__")[0]
         iota = torch.arange(p.shape[0], dtype=torch.int32, device=p.device)
         return (iota >= lo) & (iota < hi)
     return valid
@@ -115,9 +132,46 @@ def _full_plane(v, dtype: DataType, valid):
     )
 
 
+def apply_lookup(op: LookupJoinOp, cols, valid, side):
+    """A fused lookup join over one window: each probe row's key picks a
+    slot of the side tables (``slot = key - lo``), the found bitmap says
+    whether the build side has it, and the value columns are gathered.
+    Left joins keep unmatched rows with zero values; inner joins drop
+    them from the mask."""
+    if side is None:
+        raise BindError(
+            "LookupJoinOp fragment ran without its side tables "
+            "(cols['__side__'] missing)"
+        )
+    k = cols[op.key_col][0]
+    idx = k.to(torch.int64) - op.lo
+    inb = (idx >= 0) & (idx < op.dom)
+    slot = torch.clamp(idx, 0, op.dom - 1)
+    found = inb & side[f"{op.prefix}:found"][slot]
+    cols = dict(cols)
+    for name, _dt, n_planes in op.out_cols:
+        planes = []
+        for j in range(n_planes):
+            v = lookup_gather(side[f"{op.prefix}:{name}:{j}"], slot)
+            if op.how == "left":
+                # Inner joins skip the select: not-found rows become
+                # invalid below, so their gathered values are masked
+                # everywhere downstream.
+                v = torch.where(found, v, torch.zeros((), dtype=v.dtype,
+                                                      device=v.device))
+            planes.append(v)
+        cols[name] = tuple(planes)
+    if op.how == "inner":
+        valid = valid & found
+    return cols, valid
+
+
 def _bind_pre_stage(ops, relation, dicts, registry):
-    """Bind leading Map/Filter ops; returns (apply_fn, relation, dicts)."""
+    """Bind leading Map/Filter/LookupJoin ops; returns (apply_fn,
+    relation, dicts). A lookup join reads its side tables from
+    ``cols['__side__']``."""
     steps = []  # ("map", [(name, BoundExpr)]) | ("filter", BoundExpr)
+    #           | ("lookup", LookupJoinOp)
     for op in ops:
         if isinstance(op, MapOp):
             bound = [(name, bind_expr(e, relation, dicts, registry)) for name, e in op.exprs]
@@ -129,6 +183,14 @@ def _bind_pre_stage(ops, relation, dicts, registry):
             if b.dtype != DataType.BOOLEAN:
                 raise BindError(f"filter predicate has type {b.dtype}, want BOOLEAN")
             steps.append(("filter", b))
+        elif isinstance(op, LookupJoinOp):
+            if not relation.has_column(op.key_col):
+                raise BindError(f"lookup key {op.key_col!r} not in {relation}")
+            steps.append(("lookup", op))
+            relation = Relation(
+                list(relation.items())
+                + [(n, dt) for n, dt, _np in op.out_cols]
+            )
         else:
             raise NotImplementedError(
                 f"{type(op).__name__} in a fragment is not in this slice of "
@@ -136,6 +198,8 @@ def _bind_pre_stage(ops, relation, dicts, registry):
             )
 
     def apply(cols, valid):
+        cols = dict(cols)
+        side = cols.pop("__side__", None)
         for kind, payload in steps:
             if kind == "map":
                 new_cols = {}
@@ -146,11 +210,33 @@ def _bind_pre_stage(ops, relation, dicts, registry):
                         _full_plane(p, b.dtype, valid) for p in planes
                     )
                 cols = new_cols
+            elif kind == "lookup":
+                cols, valid = apply_lookup(payload, cols, valid, side)
             else:
                 valid = valid & _full_plane(payload.fn(cols), DataType.BOOLEAN, valid)
         return cols, valid
 
     return apply, relation, dicts
+
+
+def _pure_select_map(pre):
+    """out col -> source table col when the chain is only pure
+    column-select/rename Maps; None when any real computation or
+    filtering happens."""
+    mapping = None  # None = identity so far
+    for op in pre:
+        if not isinstance(op, MapOp) or not all(
+            isinstance(e, ColumnRef) for _n, e in op.exprs
+        ):
+            return None
+        new = {}
+        for n2, e in op.exprs:
+            src = e.name if mapping is None else mapping.get(e.name)
+            if src is None:
+                return None
+            new[n2] = src
+        mapping = new
+    return mapping if mapping is not None else {}
 
 
 def _split_chain(ops):
@@ -175,12 +261,12 @@ def _split_chain(ops):
 def _expr_stats(e, stats):
     """(min, max, stride) bounds of an integer expression, or None.
 
-    Interval + stride arithmetic over affine expressions: +/-/*-by-literal
-    keep the lattice. The invariant maintained is "every value ≡ min (mod
-    stride)", which is exactly what the dense packing needs: code =
-    (v - min) // stride is exact. Constants carry stride 0 (gcd
-    identity). The JAX package also bounds ``bin(t, d)``, which this
-    slice of the port does not register."""
+    Interval + stride arithmetic over the affine expressions the planner
+    emits for time windowing: ``bin(t, d)`` yields multiples of ``d``,
+    and +/-/*-by-literal keep the lattice. The invariant maintained is
+    "every value ≡ min (mod stride)", which is exactly what the dense
+    packing needs: code = (v - min) // stride is exact. Constants carry
+    stride 0 (gcd identity)."""
     if isinstance(e, ColumnRef):
         s = stats.get(e.name)
         if s is None:
@@ -196,6 +282,14 @@ def _expr_stats(e, stats):
     args = [_expr_stats(a, stats) for a in e.args]
     if any(a is None for a in args):
         return None
+    if e.name == "bin" and len(args) == 2 and args[1][0] == args[1][1]:
+        d = args[1][0]
+        lo, hi, _s = args[0]
+        if d <= 0 or lo < 0:
+            # Floor-mod and this arithmetic agree for non-negative
+            # values; negative time bases don't occur, so just decline.
+            return None
+        return (lo - lo % d, hi - hi % d, d)
     if e.name in ("add", "subtract") and len(args) == 2:
         (la, ha, sa), (lb, hb, sb) = args
         st = math.gcd(sa, sb)
@@ -341,7 +435,7 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
     # group id — no per-window sort or hash, and state merges are
     # slot-aligned. A single integer key gets the larger domain budget.
     # Other keys take the sort/hash form at capacity agg.max_groups.
-    dense_domains = None
+    dense_domains = dense_offsets = dense_strides = None
     if allow_dense and agg.group_cols:
         doms = _static_key_domains(
             rel1, dicts1, list(agg.group_cols), col_stats
@@ -657,4 +751,7 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
         finalize=finalize,
         limit=limit,
         uses_dense_fold=uses_dense_fold,
+        dense_domains=dense_domains or (),
+        dense_offsets=dense_offsets or (),
+        dense_strides=dense_strides or (),
     )

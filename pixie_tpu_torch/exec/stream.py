@@ -1,9 +1,9 @@
 """Stream and result primitives shared by the engine's execution paths.
 
 A port of the part of the JAX package's ``exec/stream.py`` that the
-single-engine window path needs: the query errors, the ``_Stream`` unit
-of deferred work (a table source plus the chain of fragment ops so far),
-the rebucket step (``_double_agg_groups``), the stage timer and
+single-engine path needs: the query errors, the ``_Stream`` unit of
+deferred work (a table source plus the chain of fragment ops so far, and
+the side tables of its fused lookup joins), the rebucket step (``_double_agg_groups``), the stage timer and
 attribution fence (``_timed``, ``_block_if``), and the host-batch
 assembly helpers.
 
@@ -18,7 +18,7 @@ import contextlib
 import dataclasses
 import json
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -44,19 +44,37 @@ class QueryCancelled(QueryError):
 @dataclass
 class _Stream:
     """A source (the tablets of a table, or a host batch that an earlier
-    fragment materialized) plus the chain of fragment ops so far."""
+    fragment materialized) plus the chain of fragment ops so far.
+    ``side`` holds the query-constant side tables the chain's fused
+    lookup joins gather from (device tensors, keyed by reserved names),
+    put on the engine's device once per query."""
 
     relation: Relation
     dicts: dict
     chain: list
     source: object  # list[Table] | HostBatch
     source_op: Optional[MemorySourceOp] = None
+    side: dict = field(default_factory=dict)
 
     def extend(self, op) -> "_Stream":
         return _Stream(
             self.relation, self.dicts, self.chain + [op], self.source,
-            self.source_op,
+            self.source_op, dict(self.side),
         )
+
+
+def _chain_out_relation(stream: _Stream, registry):
+    """(relation, dicts) after a stream's pre-stage chain, or None if the
+    chain does not bind (the caller falls back to the generic path)."""
+    from .fragment import _bind_pre_stage
+
+    try:
+        _, rel, dicts = _bind_pre_stage(
+            list(stream.chain), stream.relation, dict(stream.dicts), registry
+        )
+    except Exception:
+        return None
+    return rel, dicts
 
 
 def _stream_col_stats(stream: _Stream):
@@ -101,7 +119,7 @@ def _double_agg_groups(stream: _Stream) -> _Stream:
     if not doubled:
         raise AssertionError("no AggOp in overflowing chain")
     return _Stream(stream.relation, stream.dicts, chain, stream.source,
-                   stream.source_op)
+                   stream.source_op, dict(stream.side))
 
 
 @contextlib.contextmanager

@@ -142,6 +142,29 @@ def _gather(p, idx):
     return _as(_i64(p)[idx], p.dtype)
 
 
+def sorted_key_runs(key_planes, n: int, dev, mask=None):
+    """The n rows' stable lexicographic order by their key planes and
+    where each key run starts in it.
+
+    Returns (order int64[n]: secondary keys sorted first, primary last,
+    then, given a ``mask``, masked rows moved to the end; is_new bool[n]:
+    True where a sorted row's key differs from the row before it, False
+    at 0).
+    """
+    planes = [_sortable(p) for p in key_planes]
+    order = torch.arange(n, dtype=torch.int64, device=dev)
+    for p in reversed(planes):
+        order = order[torch.argsort(p[order], stable=True)]
+    if mask is not None:  # as int8: there is no sort of bools
+        order = order[torch.argsort((~mask[order]).to(torch.int8),
+                                    stable=True)]
+    is_new = torch.zeros(n, dtype=torch.bool, device=dev)
+    for p in planes:
+        sp = p[order]
+        is_new[1:] |= sp[1:] != sp[:-1]
+    return order, is_new
+
+
 def dense_group_ids(key_planes, mask, max_groups: int):
     """Assign dense group ids by a multi-key stable sort.
 
@@ -158,22 +181,9 @@ def dense_group_ids(key_planes, mask, max_groups: int):
     """
     n = mask.shape[0]
     dev = mask.device
-    planes = [_sortable(p) for p in key_planes]
-
-    # Lexicographic stable sort: secondary keys first, primary last, then
-    # masked rows to the end by a final sort on ~mask (as int8: there is
-    # no sort of bools).
-    order = torch.arange(n, dtype=torch.int64, device=dev)
-    for p in reversed(planes):
-        order = order[torch.argsort(p[order], stable=True)]
-    order = order[torch.argsort((~mask[order]).to(torch.int8), stable=True)]
-
+    order, is_new = sorted_key_runs(key_planes, n, dev, mask)
     sorted_mask = mask[order]
-    is_new = torch.zeros(n, dtype=torch.bool, device=dev)
-    for p in planes:
-        sp = p[order]
-        is_new[1:] |= sp[1:] != sp[:-1]
-    if planes:
+    if key_planes:
         # A fill, not `is_new[0] = True`, which syncs on CUDA.
         is_new[:1].fill_(True)
     is_new &= sorted_mask

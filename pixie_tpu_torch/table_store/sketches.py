@@ -106,6 +106,9 @@ class TableSketches:
     def update(self, name: str, values: np.ndarray, row0: int) -> None:
         self.cols.setdefault(name, ColumnSketch()).update(values, row0)
 
+    def col(self, name: str) -> ColumnSketch | None:
+        return self.cols.get(name)
+
     def ndv(self, name: str) -> int | None:
         s = self.cols.get(name)
         return s.ndv if s is not None and s.rows else None

@@ -1,11 +1,17 @@
-"""Math scalar UDFs and numeric UDAs (the subset this slice binds).
+"""Math scalar UDFs and numeric UDAs.
 
 Reference parity: ``src/carnot/funcs/builtins/math_ops.h:34-744`` — binary
-arithmetic and division, comparisons, and the UDAs MeanUDA(:584)/
+arith (add/subtract/multiply/divide/modulo/pow), comparisons, logical
+ops, unary (abs/ceil/floor/round/sqrt/exp/ln/log2/log10/log/negate/
+invert), ``bin``, time conversions, and the UDAs MeanUDA(:584)/
 SumUDA(:630)/MaxUDA(:661)/MinUDA(:703)/CountUDA(:744). A port of the JAX
 package's ``udf/builtins/math_ops.py``: scalars are whole-plane tensor
 expressions; UDAs are segment reductions into [G] carries with
 associative merges.
+
+A literal argument arrives as a Python scalar. Where every argument is
+one, the float functions compute in float32 with numpy (the width of a
+FLOAT64 plane) and return a Python scalar, which the fragment broadcasts.
 
 The segment reductions scatter into a trash slot G that masked rows
 point at (``index_add_``/``scatter_reduce_``). The JAX package's sorted
@@ -72,6 +78,63 @@ def _divide(a, b):
     return torch.div(as_tensor(a), as_tensor(b))
 
 
+def _f32(fn_t, fn_np):
+    """A unary float function: ``fn_t`` on a plane, ``fn_np`` in float32
+    on a literal."""
+    def f(x):
+        if isinstance(x, torch.Tensor):
+            return fn_t(x)
+        with np.errstate(all="ignore"):
+            return float(fn_np(np.float32(x)))
+    return f
+
+
+def _as_plane(x, ref):
+    """``x`` as a 0-d tensor of ``ref``'s dtype and device (a literal) or
+    as is (a plane)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), x, dtype=ref.dtype, device=ref.device)
+
+
+def _log(b, x):
+    """log base ``b`` of ``x``: ln(x) / ln(b), each in float32."""
+    return _divide(_f32(torch.log, np.log)(x), _f32(torch.log, np.log)(b))
+
+
+def _pow(a, b):
+    if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+        with np.errstate(all="ignore"):
+            return float(np.power(np.float32(a), np.float32(b)))
+    ref = a if isinstance(a, torch.Tensor) else b
+    return torch.pow(_as_plane(a, ref), _as_plane(b, ref))
+
+
+def _nonzero_divisor(b):
+    """``b`` with zeros made 1 (the JAX package's guard before ``%``)."""
+    if isinstance(b, torch.Tensor):
+        return torch.where(b == 0, 1, b)
+    return 1 if b == 0 else b
+
+
+def _modulo(a, b):
+    """Floor modulo; 0 where the divisor is 0."""
+    if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+        return a % b if b != 0 else 0
+    ref = a if isinstance(a, torch.Tensor) else b
+    r = torch.remainder(_as_plane(a, ref), _as_plane(_nonzero_divisor(b), ref))
+    return torch.where(_as_plane(b, ref) != 0, r, 0)
+
+
+def _bin(v, s):
+    """Round ``v`` down to a multiple of ``s`` (``v`` itself for s = 0)."""
+    d = _nonzero_divisor(s)
+    if not isinstance(v, torch.Tensor) and not isinstance(d, torch.Tensor):
+        return v - v % d
+    ref = v if isinstance(v, torch.Tensor) else d
+    return v - torch.remainder(_as_plane(v, ref), _as_plane(d, ref))
+
+
 def _mean_finalize(c):
     s, n = c[0].to(torch.float64), c[1].to(torch.float64)
     return torch.where(n > 0, s / torch.clamp(n, min=1.0), torch.nan)
@@ -83,6 +146,7 @@ def register(reg):
         reg.scalar("add", (dt, dt), dt, lambda a, b: a + b)
         reg.scalar("subtract", (dt, dt), dt, lambda a, b: a - b)
         reg.scalar("multiply", (dt, dt), dt, lambda a, b: a * b)
+    # Time arithmetic keeps TIME64NS (duration treated as INT64 input).
     reg.scalar("add", (TIME64NS, TIME64NS), TIME64NS, lambda a, b: a + b)
     reg.scalar("subtract", (TIME64NS, TIME64NS), TIME64NS, lambda a, b: a - b)
     # divide always yields float (Carnot: DivideUDF -> FLOAT64).
@@ -93,6 +157,8 @@ def register(reg):
         _divide,
         doc="Arithmetic division; inf/nan on zero divisors.",
     )
+    reg.scalar("modulo", (INT64, INT64), INT64, _modulo)
+    reg.scalar("pow", (FLOAT64, FLOAT64), FLOAT64, _pow)
 
     # -- comparisons ---------------------------------------------------------
     for dt in (INT64, FLOAT64, TIME64NS, BOOLEAN, STRING):
@@ -103,11 +169,42 @@ def register(reg):
         reg.scalar("lessThanEqual", (dt, dt), BOOLEAN, lambda a, b: a <= b)
         reg.scalar("greaterThan", (dt, dt), BOOLEAN, lambda a, b: a > b)
         reg.scalar("greaterThanEqual", (dt, dt), BOOLEAN, lambda a, b: a >= b)
+    # Tolerance sized for f32 planes (one ULP at magnitude 1 is ~1.2e-7).
+    reg.scalar("approxEqual", (FLOAT64, FLOAT64), BOOLEAN,
+               lambda a, b: abs(a - b) < 1e-4)
 
     # -- logical -------------------------------------------------------------
     reg.scalar("logicalAnd", (BOOLEAN, BOOLEAN), BOOLEAN, lambda a, b: a & b)
     reg.scalar("logicalOr", (BOOLEAN, BOOLEAN), BOOLEAN, lambda a, b: a | b)
     reg.scalar("logicalNot", (BOOLEAN,), BOOLEAN, lambda a: ~a)
+    reg.scalar("invert", (BOOLEAN,), BOOLEAN,
+               lambda a: ~a if isinstance(a, torch.Tensor) else not a)
+
+    # -- unary math ----------------------------------------------------------
+    for dt in (INT64, FLOAT64):
+        reg.scalar("abs", (dt,), dt, lambda a: abs(a))
+        reg.scalar("negate", (dt,), dt, lambda a: -a)
+    reg.scalar("ceil", (FLOAT64,), FLOAT64, _f32(torch.ceil, np.ceil))
+    reg.scalar("floor", (FLOAT64,), FLOAT64, _f32(torch.floor, np.floor))
+    reg.scalar("round", (FLOAT64,), FLOAT64, _f32(torch.round, np.round))
+    reg.scalar("sqrt", (FLOAT64,), FLOAT64, _f32(torch.sqrt, np.sqrt))
+    reg.scalar("exp", (FLOAT64,), FLOAT64, _f32(torch.exp, np.exp))
+    reg.scalar("ln", (FLOAT64,), FLOAT64, _f32(torch.log, np.log))
+    reg.scalar("log2", (FLOAT64,), FLOAT64, _f32(torch.log2, np.log2))
+    reg.scalar("log10", (FLOAT64,), FLOAT64, _f32(torch.log10, np.log10))
+    reg.scalar("log", (FLOAT64, FLOAT64), FLOAT64, _log)
+
+    # -- bin + time conversions ----------------------------------------------
+    reg.scalar(
+        "bin",
+        (INT64, INT64),
+        INT64,
+        _bin,
+        doc="Round v down to the nearest multiple of s (px.bin).",
+    )
+    reg.scalar("bin", (TIME64NS, INT64), TIME64NS, _bin)
+    reg.scalar("time_to_int64", (TIME64NS,), INT64, lambda t: t)
+    reg.scalar("int64_to_time", (INT64,), TIME64NS, lambda t: t)
 
     # -- UDAs ----------------------------------------------------------------
     # Float carries are f64 even though column planes are f32 ([G]-sized

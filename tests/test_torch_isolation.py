@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``pixie_tpu_torch/`` (nor
 ``chip_smoke.py`` or ``chip_ab.py``) imports JAX or the JAX package, a CPU
 query through every module of the window path (device cache, sketches,
-zone skipping, pipeline) and the group-by over UINT128 keys (the
-hash form, the ``any`` UDA) leaves neither in ``sys.modules``, and
+zone skipping, pipeline), the group-by over UINT128 keys (the hash
+form, the ``any`` UDA) and a windowed radix join leaves neither in
+``sys.modules``, and
 nothing falls back to the CPU or to a plain version on its own."""
 
 import ast
@@ -76,9 +77,22 @@ out = eng.execute_query(
     "px.display(df.groupby('upid').agg(n=('v', px.count), pod=('pod', px.any)))"
 )["output"].to_pydict()
 assert sorted(out["n"].tolist()) == [85] * 10 + [86] * 25, out
+from pixie_tpu_torch.config import clear_flag, set_flag
+set_flag("join_strategy", "radix")
+set_flag("join_probe_window_rows", 512)
+out = eng.execute_query(
+    "import px\\nr = px.DataFrame(table='p')\\nl = r[r.v < 9]\\n"
+    "g = l.merge(r, how='inner', left_on=['pod'], right_on=['pod'],"
+    " suffixes=['', '_r'])\\npx.display(g)"
+)["output"].to_pydict()
+assert eng.last_join_decision.strategy == "radix", eng.last_join_decision
+assert len(out["v_r"]) == 9000 and out["v_r"].sum() == 3 * 2999 * 3000 // 2, out
+clear_flag("join_strategy")
+clear_flag("join_probe_window_rows")
 for mod in ("exec.pipeline", "exec.zoneskip", "exec.stream",
             "table_store.device_cache", "table_store.sketches", "ops.hll",
-            "ops.groupby", "udf.builtins.collections"):
+            "ops.groupby", "udf.builtins.collections", "exec.joins",
+            "ops.join", "ops.hashtable"):
     assert "pixie_tpu_torch." + mod in sys.modules, mod
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]

@@ -97,8 +97,42 @@ def test_compile_pxl_matches_jax(script):
     assert got.outputs == ref.outputs == ["output"]
 
 
+# The scripts with joins, and the tables they read (http_events with the
+# pod column px/service_resource_usage groups by).
+JOIN_SCRIPTS = ("px/net_flow_graph", "px/http_request_stats",
+                "px/service_resource_usage")
+JOIN_TABLES = {
+    "conn_stats": jax_schemas.CONN_STATS_RELATION,
+    "process_stats": jax_schemas.PROCESS_STATS_RELATION,
+    "http_events": JaxRelation(
+        [(n, JaxDataType[t]) for n, t in HTTP_EVENTS + [("pod", "STRING")]]),
+}
+
+
+def _compile_both(q, tables):
+    jax_state = JaxCompilerState(
+        schemas=tables, registry=jax_registry(), now_ns=1,
+    )
+    state = CompilerState(
+        schemas={
+            name: Relation([(n, DataType[t.name]) for n, t in rel.items()])
+            for name, rel in tables.items()
+        },
+        registry=default_registry(), now_ns=1,
+    )
+    return compile_pxl(q, state), jax_compile_pxl(q, jax_state)
+
+
+@pytest.mark.parametrize("script", JOIN_SCRIPTS)
+def test_join_scripts_compile_like_jax(script):
+    got, ref = _compile_both(load_script(script), JOIN_TABLES)
+    assert _plan_shape(got.plan) == _plan_shape(ref.plan)
+    assert got.outputs == ref.outputs == ["output"]
+
+
 @pytest.mark.parametrize(
-    "name", ["px/http_stats", "px/service_stats", *UPID_SCRIPTS]
+    "name", ["px/http_stats", "px/service_stats", *UPID_SCRIPTS,
+             *JOIN_SCRIPTS]
 )
 def test_script_copies_match_jax_package(name):
     assert load_script(name) == jax_load_script(name).pxl
