@@ -46,7 +46,12 @@ without them. In order it:
    p50/p99 by upid, each checked against numpy, in three turns per
    groupby_impl form (sort, hash), with the rebuckets, the host syncs
    per window (by the line that made them), the hist_fold launches and
-   the card's idle share of each;
+   the card's idle share of each; then the metadata phase over the same
+   resident rows: a MetadataState (the 2,000 pods in 200 services and
+   20 namespaces on 50 nodes, 1% of the upids unknown) attached with
+   ``Engine.set_metadata_state``, and ``df.ctx['service']``, ``['pod']``
+   and ``['namespace']`` group-bys, each checked against numpy over the
+   same mapping, timed in three turns with the card's idle share;
 7. the joins phase, each answer checked against numpy with bench.py's
    assertions: px/http_request_stats over the resident main replay
    (after the tail phase), px/service_resource_usage over the group_by
@@ -55,10 +60,18 @@ without them. In order it:
    11, 48 pods), bench.py's three join shapes at 2^22 rows a side
    (device_join: the fused lookup join; device_join_skew: radix;
    device_join_select: zone-skipped probe windows) and the skew shape
-   forced to single, sorted and radix; each query prints its
-   JoinDecision, three timed turns after a warm-up, the host syncs per
-   probe window and the card's idle share;
-8. prints one ``{"kernels": [...]}`` line and, last, the device line.
+   forced to single and sorted; each query prints its JoinDecision,
+   three timed turns after a warm-up (one when forced), the host syncs
+   per probe window and the card's idle share;
+8. the library phase: ``init_schemas`` on a fresh engine with the
+   default budgets, every Stirling table filled to its 32 MiB budget
+   (http_events cut to 2^22 rows, the telemetry tables 4096 rows) from
+   a seeded generator with the vocabularies of the JAX package's script
+   harness, and each of the 80 shipped scripts but px/agent_status run
+   on the card (a warm-up, three timed turns, one under torch.profiler)
+   and checked against the port's CPU engine over the same rows, with
+   each kernel's launches per script;
+9. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -689,7 +702,7 @@ class Expect:
 def query_text(name: str) -> str:
     from pixie_tpu_torch.scripts import load_script
 
-    return HTTP_STATS_F64 if name == "http_stats_float64" else load_script(name)
+    return HTTP_STATS_F64 if name == "http_stats_float64" else load_script(name).pxl
 
 
 def run_checked(eng, name: str, expect: Expect, **kw) -> dict:
@@ -856,9 +869,9 @@ def phase_row_chains(eng, replay) -> None:
         "px/http_data": (np.arange(128), [n for n, _t in RELATION]),
     }
     for name, (idx, cols) in cases.items():
-        eng.execute_query(load_script(name))
+        eng.execute_query(load_script(name).pxl)
         t0 = time.perf_counter()
-        out = eng.execute_query(load_script(name))["output"]
+        out = eng.execute_query(load_script(name).pxl)["output"]
         secs = time.perf_counter() - t0
         check_rows(out, replay, idx, cols)
         st = eng.last_stats
@@ -1103,7 +1116,7 @@ class GroupByExpect:
 def gb_query_text(name: str) -> str:
     from pixie_tpu_torch.scripts import load_script
 
-    return RSS_QUANTILES if name == "rss_quantiles" else load_script(name)
+    return RSS_QUANTILES if name == "rss_quantiles" else load_script(name).pxl
 
 
 def _run_form(eng, name: str, form: str):
@@ -1320,6 +1333,8 @@ def phase_group_by(device) -> dict:
     rec = service_resource_usage(eng, ps)
     print(json.dumps({"phase": "joins", "query": "px/service_resource_usage",
                       "http_rows": SRU_HTTP_ROWS, **rec}))
+    # The metadata phase over this phase's resident process_stats.
+    phase_metadata(eng, ps)
     return {f: launches["rss_quantiles"][f]["hist_fold"] for f in GB_FORMS}
 
 
@@ -1358,8 +1373,8 @@ px.display(out)
 
 
 def join_query(eng, query: str, check, max_rows: int = 10_000,
-               strategy: str | None = None) -> dict:
-    """One join query: a checked warm-up, three timed turns (each
+               strategy: str | None = None, turns: int = 3) -> dict:
+    """One join query: a checked warm-up, ``turns`` timed turns (each
     checked), one turn counting host syncs by line and one under
     torch.profiler. The kernels' launch counters are set to 0 before the
     timed turns and read after them. ``driver_syncs`` are the syncs made
@@ -1379,13 +1394,13 @@ def join_query(eng, query: str, check, max_rows: int = 10_000,
         check(run())
         secs = []
         dense_fold.launches = hist_fold.launches = 0
-        for _ in range(3):
+        for _ in range(turns):
             t0 = time.perf_counter()
             out = run()
             secs.append(time.perf_counter() - t0)
             check(out)
-        launches = {"dense_fold": dense_fold.launches / 3,
-                    "hist_fold": hist_fold.launches / 3}
+        launches = {"dense_fold": dense_fold.launches / turns,
+                    "hist_fold": hist_fold.launches / turns}
         jd = eng.last_join_decision
         st = eng.last_stats
         total, in_driver, sites = sync_sites(
@@ -1602,7 +1617,7 @@ def service_resource_usage(eng, ps: dict) -> dict:
             np.testing.assert_allclose(got[c][order].astype(np.float64), w,
                                        rtol=1e-12, err_msg=c)
 
-    rec = join_query(eng, load_script("px/service_resource_usage"), check)
+    rec = join_query(eng, load_script("px/service_resource_usage").pxl, check)
     assert rec["decision"]["strategy"] == "host_dict", rec["decision"]
     return rec
 
@@ -1728,7 +1743,7 @@ def phase_joins_http(device) -> None:
                       "rows": HTTP_ROWS, "span_s": HTTP_SPAN_S,
                       "secs": eng.append_secs}))
     check = check_http_request_stats(traffic)
-    rec = join_query(eng, load_script("px/http_request_stats"), check,
+    rec = join_query(eng, load_script("px/http_request_stats").pxl, check,
                      max_rows=2 * N_SERVICES * HTTP_SPAN_S)
     print(json.dumps({"phase": "joins", "query": "px/http_request_stats",
                       "rows": HTTP_ROWS, "groups": check.groups, **rec}))
@@ -1740,7 +1755,7 @@ def phase_joins(device) -> None:
     http_events rows, px/net_flow_graph over 2^23 conn_stats rows, then bench.py's three join shapes at 2^22 rows a
     side (device_join -> fused, skew -> radix, select -> sorted or radix
     with zone-skipped probe windows), and the skew shape again forced to
-    single, sorted and radix."""
+    single and sorted (one timed turn each)."""
     import gc
 
     import torch
@@ -1752,7 +1767,7 @@ def phase_joins(device) -> None:
     eng = load_conn_stats(cs, device)
     print(json.dumps({"phase": "joins_append", "table": "conn_stats",
                       "rows": NFG_ROWS, "secs": eng.append_secs}))
-    rec = join_query(eng, load_script("px/net_flow_graph"),
+    rec = join_query(eng, load_script("px/net_flow_graph").pxl,
                      check_net_flow_graph(cs))
     print(json.dumps({"phase": "joins", "query": "px/net_flow_graph",
                       "rows": NFG_ROWS, **rec}))
@@ -1779,14 +1794,632 @@ def phase_joins(device) -> None:
         if shape == "select":
             assert d["skipped_windows"] > 0, d
         if shape == "skew":
-            for forced in ("single", "sorted", "radix"):
-                rec = join_query(eng, query, check, strategy=forced)
+            # auto routes it radix (asserted above); one timed turn each.
+            for forced in ("single", "sorted"):
+                rec = join_query(eng, query, check, strategy=forced, turns=1)
                 print(json.dumps({"phase": "joins", "shape": shape,
                                   "forced": forced, **rec}))
                 assert rec["decision"]["strategy"] == forced, rec["decision"]
         del eng, js
         gc.collect()
         torch.cuda.empty_cache()
+
+# -- the shipped library ----------------------------------------------------------
+LIB_HTTP_ROWS = 1 << 22  # http_events' 512 MiB budget would hold 7.9M rows
+LIB_TELEMETRY_ROWS = 4096
+LIB_VOCAB = 3000  # _seed_all_tables' n: its per-row strings take this many values
+LIB_APPEND_ROWS = 1 << 20
+LIB_SKIP = {"px/agent_status": "GetAgentStatus needs the service bus "
+                               "(ROADMAP item 18)"}
+LIB_FLOAT_RTOL, LIB_QUANTILE_RTOL = 1e-5, 0.05
+LIB_QUANTILE_UDAS = ("quantiles",) + tuple(
+    f"_quantile_{f}" for f in ("p01", "p10", "p25", "p50", "p75", "p90", "p99"))
+
+
+def _lib_tables(n_of, seed: int = SEED + 4) -> dict:
+    """Every canonical table's rows in the vocabularies of the JAX
+    package's script harness (``tests/test_scripts.py``
+    ``_seed_all_tables``), at ``n_of(table)`` rows each: {table: {col:
+    array}}, a STRING column as (ids, vocabulary). Its per-row strings
+    (``SELECT ... id={i}``) cycle through LIB_VOCAB values, the number
+    the harness makes; times are 1 ms apart."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def table(name, cols):
+        out[name] = cols
+
+    for name in ("http_events", "conn_stats", "stack_traces.beta",
+                 "mysql_events", "pgsql_events", "redis_events",
+                 "kafka_events.beta", "cql_events", "nats_events.beta",
+                 "mux_events", "amqp_events", "process_stats",
+                 "network_stats", "dns_events", "proc_stat",
+                 "bcc_pid_cpu_usage", "proc_exit_events", "stirling_error",
+                 "__queries__", "__tables__", "__spans__", "__agents__",
+                 "__programs__", "__stacks__", "__bus__"):
+        n = n_of(name)
+        i = np.arange(n)
+
+        def ints(lo, hi):
+            return rng.integers(lo, hi, n)
+
+        def pick(vals):
+            vals = list(vals)
+            idx = rng.integers(0, len(vals), n)
+            if isinstance(vals[0], str):
+                return idx.astype(np.int32), vals
+            return np.asarray(vals)[idx]
+
+        def cyc(fmt, k, key=lambda j: (j,)):
+            """Row i takes string i % k (duplicates share one id)."""
+            k = min(k, n)
+            strs = [fmt.format(*key(j)) for j in range(k)]
+            vocab = list(dict.fromkeys(strs))
+            pos = {v: x for x, v in enumerate(vocab)}
+            code = np.array([pos[v] for v in strs], dtype=np.int32)
+            return code[i % k], vocab
+
+        def const(s):
+            return np.zeros(n, np.int32), [s]
+
+        def lat(lo, hi):
+            return ints(lo, hi).astype(np.int64)
+
+        t = i.astype(np.int64) * 10**6
+        upid = (np.ones(n, np.uint64), ints(1, 50).astype(np.uint64))
+        pods, svcs = cyc("ns/pod-{}", 6), cyc("svc-{}", 4)
+        if name == "http_events":
+            table(name, {
+                "time_": t, "upid": upid, "remote_addr": cyc("10.0.0.{}", 9),
+                "req_method": cyc("{}", 2, lambda j: (("GET", "POST")[j],)),
+                "req_path": cyc("/ep{}", 6),
+                "resp_status": pick([200, 200, 200, 404, 500]),
+                "resp_body_size": ints(1, 4096), "latency_ns": lat(10**5, 10**9),
+                "service": svcs, "pod": pods})
+        elif name == "conn_stats":
+            table(name, {
+                "time_": t, "upid": upid, "remote_addr": cyc("10.0.1.{}", 7),
+                "remote_port": ints(1024, 65535), "trace_role": pick([1, 2]),
+                "addr_family": np.full(n, 2, np.int64), "protocol": pick([0, 1]),
+                "ssl": pick([True, False]), "conn_open": ints(0, 3),
+                "conn_close": ints(0, 3), "conn_active": ints(0, 5),
+                "bytes_sent": ints(0, 10**6), "bytes_recv": ints(0, 10**6),
+                "src_addr": cyc("10.0.1.{}", 7), "src_pod": pods})
+        elif name == "stack_traces.beta":
+            table(name, {
+                "time_": t, "upid": upid, "stack_trace_id": ints(0, 40),
+                "stack_trace": cyc("main;f{};g{}", 65, lambda j: (j % 5, j % 13)),
+                "count": ints(1, 30), "pod": pods})
+        elif name == "mysql_events":
+            table(name, {
+                "time_": t, "upid": upid, "req_cmd": np.full(n, 3, np.int64),
+                "query_str": cyc("SELECT * FROM t WHERE id={}", LIB_VOCAB),
+                "resp_status": pick([2, 2, 2, 3]),
+                "latency_ns": lat(10**4, 10**8), "service": svcs})
+        elif name == "pgsql_events":
+            table(name, {
+                "time_": t, "upid": upid,
+                "req_cmd": cyc("{}", 2, lambda j: (("QUERY", "EXECUTE")[j],)),
+                "req": cyc("SELECT {};", LIB_VOCAB), "resp": const("SELECT 1"),
+                "latency_ns": lat(10**4, 10**8), "service": svcs})
+        elif name == "redis_events":
+            table(name, {
+                "time_": t, "upid": upid,
+                "req_cmd": cyc("{}", 4, lambda j: (
+                    ("GET", "SET", "HGETALL", "INCR")[j],)),
+                "req_args": cyc("key{}", 40), "resp": const("OK"),
+                "latency_ns": lat(10**3, 10**7), "service": svcs})
+        elif name == "kafka_events.beta":
+            table(name, {
+                "time_": t, "upid": upid, "req_cmd": pick([0, 1, 3, 12]),
+                "client_id": cyc("client-{}", 5), "req_body": const("Produce v9"),
+                "resp": const("bytes=12"), "latency_ns": lat(10**4, 10**8),
+                "service": svcs})
+        elif name == "cql_events":
+            table(name, {
+                "time_": t, "upid": upid, "req_op": pick([7, 9, 10, 13]),
+                "req_body": cyc("SELECT * FROM ks.t WHERE id={}", 20),
+                "resp_op": pick([8, 8, 8, 0]), "resp_body": const("Rows cols=2"),
+                "latency_ns": lat(10**4, 10**8), "service": svcs})
+        elif name == "nats_events.beta":
+            table(name, {
+                "time_": t, "upid": upid,
+                "cmd": cyc("{}", 4, lambda j: (("PUB", "MSG", "SUB", "PING")[j],)),
+                "body": const('{"subject": "orders"}'),
+                "resp": cyc("{}", 2, lambda j: (("OK", "")[j],)),
+                "latency_ns": lat(10**3, 10**6), "service": svcs})
+        elif name == "mux_events":
+            table(name, {
+                "time_": t, "upid": upid, "req_type": pick([1, 2, 65]),
+                "latency_ns": lat(10**4, 10**8), "service": svcs})
+        elif name == "amqp_events":
+            table(name, {
+                "time_": t, "upid": upid, "channel": ints(1, 8),
+                "method": cyc("{}", 3, lambda j: (
+                    ("basic.publish", "basic.deliver", "queue.declare")[j],)),
+                "resp": const(""), "latency_ns": lat(0, 10**6), "service": svcs})
+        elif name == "process_stats":
+            table(name, {
+                "time_": t, "upid": upid, "major_faults": ints(0, 5),
+                "minor_faults": ints(0, 500), "cpu_utime_ns": ints(0, 10**7),
+                "cpu_ktime_ns": ints(0, 10**6), "rss_bytes": ints(10**6, 10**9),
+                "vsize_bytes": ints(10**7, 10**10), "rchar_bytes": ints(0, 10**6),
+                "wchar_bytes": ints(0, 10**6), "read_bytes": ints(0, 10**6),
+                "write_bytes": ints(0, 10**6), "pod": pods})
+        elif name == "network_stats":
+            table(name, {
+                "time_": t, "pod_id": cyc("id-{}", 6), "rx_bytes": ints(0, 10**6),
+                "rx_packets": ints(0, 10**4), "rx_errors": ints(0, 10),
+                "rx_drops": ints(0, 10), "tx_bytes": ints(0, 10**6),
+                "tx_packets": ints(0, 10**4), "tx_errors": ints(0, 10),
+                "tx_drops": ints(0, 10), "pod": pods})
+        elif name == "dns_events":
+            table(name, {
+                "time_": t, "upid": upid, "req_header": const('{"txid": 1}'),
+                "req_body": cyc('{{"queries": ["d{}.example.com"]}}', 8),
+                "resp_header": const('{"rcode": 0}'),
+                "resp_body": const('{"answers": []}'),
+                "latency_ns": lat(10**4, 10**7), "pod": pods})
+        elif name == "proc_stat":
+            table(name, {
+                "time_": t, "system_percent": rng.uniform(0, 30, n),
+                "user_percent": rng.uniform(0, 60, n),
+                "idle_percent": rng.uniform(10, 100, n)})
+        elif name == "bcc_pid_cpu_usage":
+            table(name, {
+                "time_": t, "pid": ints(1, 50), "runtime_ns": ints(0, 10**10),
+                "cmd": cyc("proc-{}", 12)})
+        elif name == "proc_exit_events":
+            table(name, {
+                "time_": t, "upid": upid, "exit_code": pick([-1, 0, 1, 137]),
+                "signal": pick([-1, 9, 15]), "comm": cyc("proc-{}", 12)})
+        elif name == "stirling_error":
+            table(name, {
+                "time_": t, "upid": upid,
+                "source_connector": cyc("{}", 3, lambda j: (
+                    ("seq_gen", "proc_stat", "tap")[j],)),
+                "status": pick([0, 0, 0, 2]),
+                "error": cyc("{}", 2, lambda j: (("", "RuntimeError('boom')")[j],))})
+        elif name == "__queries__":
+            table(name, {
+                "time_": t, "trace_id": cyc("{:032x}", LIB_VOCAB),
+                "qid": cyc("{}", 10, lambda j: (("", f"q{j % 5}")[j % 2],)),
+                "tenant": cyc("{}", 3, lambda j: (("", "shared", "dash")[j],)),
+                "agent_id": cyc("pem-{}", 3),
+                "kind": cyc("{}", 3, lambda j: (("query", "fragment", "merge")[j],)),
+                "script_hash": cyc("hash-{}", 4), "script": const("import px"),
+                "status": cyc("{}", 4, lambda j: (("ok", "ok", "ok", "error")[j],)),
+                "duration_ms": rng.uniform(1, 500, n), "rows_in": ints(0, 10**6),
+                "rows_out": ints(0, 10**4), "windows": ints(0, 64),
+                "bytes_staged": ints(0, 10**8), "device_ms": rng.uniform(0, 100, n),
+                "compile_ms": rng.uniform(0, 50, n),
+                "stall_ms": rng.uniform(0, 20, n), "wire_bytes": ints(0, 10**6),
+                "retries": ints(0, 3), "skipped_windows": ints(0, 8),
+                "device_peak_bytes": ints(0, 10**9),
+                "predicted_bytes": ints(0, 10**8) * 2,
+                "predicted_rows": np.where(i % 4 > 0, ints(1, 10**6) * 2, 0),
+                "freshness_lag_ms": rng.uniform(0, 2000, n),
+                "cache": cyc("{}", 6, lambda j: (
+                    ("", "hit", "miss", "stale", "bypass", "view")[j],))})
+        elif name == "__tables__":
+            step = (i // 4).astype(np.int64)
+            wm0 = np.where(i % 2 == 0, 10**9, 2 * 10**9)
+            table(name, {
+                "time_": t, "agent_id": cyc("pem-{}", 4, lambda j: (j // 2,)),
+                "table": cyc("{}", 2, lambda j: (("http_events", "conn_stats")[j],)),
+                "rows": 1000 * (step + 1), "bytes": 64_000 * (step + 1),
+                "hot_bytes": 32_000 * (step + 1), "cold_bytes": 32_000 * (step + 1),
+                "hot_rows": 500 * (step + 1), "cold_rows": 500 * (step + 1),
+                "cold_raw_bytes": 96_000 * (step + 1),
+                "cold_demotions_total": 4 * (step + 1),
+                "cold_evictions_total": step, "device_bytes": 16_000 * step,
+                "rows_total": 2000 * (step + 1), "bytes_total": 128_000 * (step + 1),
+                "expired_rows_total": 1000 * step,
+                "expired_bytes_total": 64_000 * step,
+                "watermark": wm0 + step * 10**8, "min_time": wm0,
+                "last_append": wm0 + step * 10**8,
+                "ingest_rows_per_s": 1000.0 + 10 * step})
+        elif name == "__spans__":
+            table(name, {
+                "time_": t, "trace_id": cyc("{:032x}", 8),
+                "span_id": cyc("{:016x}", LIB_VOCAB),
+                "parent_id": cyc("{}", 2 * LIB_VOCAB, lambda j: (
+                    ("", f"{j - 1:016x}")[j % 2],)),
+                "name": cyc("{}", 4, lambda j: (
+                    ("query", "compile", "fragment", "window.compute")[j],)),
+                "agent_id": cyc("pem-{}", 3),
+                "duration_ms": rng.uniform(0, 100, n)})
+        elif name == "__agents__":
+            table(name, {
+                "time_": t, "agent_id": cyc("pem-{}", 3), "kind": const("pem"),
+                "queries_total": i.astype(np.int64) + 1,
+                "errors_total": ints(0, 3), "bytes_staged_total": ints(0, 10**9),
+                "device_ms_total": rng.uniform(0, 1000, n),
+                "wire_bytes_total": ints(0, 10**7)})
+        elif name == "__programs__":
+            table(name, {
+                "time_": t, "agent_id": cyc("pem-{}", 3),
+                "program_id": cyc("{:016x}", 6),
+                "kind": cyc("{}", 3, lambda j: (
+                    ("fragment_update", "fragment_finalize",
+                     "join_probe_sorted")[j],)),
+                "label": const("MapOp,AggOp"),
+                "compiles": np.minimum(i.astype(np.int64) // 6 + 1, 3),
+                "hits": i.astype(np.int64), "compile_ms": rng.uniform(1, 500, n),
+                "flops": rng.uniform(0, 10**9, n),
+                "bytes_accessed": rng.uniform(0, 10**9, n),
+                "argument_bytes": ints(0, 10**8), "temp_bytes": ints(0, 10**7),
+                "peak_bytes": ints(0, 10**8)})
+        elif name == "__stacks__":
+            table(name, {
+                "time_": t, "agent_id": cyc("pem-{}", 3),
+                "stack_trace_id": (i % 9).astype(np.int64),
+                "stack_trace": cyc("main;f{};g{}", 65, lambda j: (j % 5, j % 13)),
+                "count": ints(1, 30),
+                "qid": cyc("{}", 10, lambda j: (("", f"q{j % 5}")[j % 2],)),
+                "script_hash": cyc("{}", 12, lambda j: (
+                    ("", f"hash-{j % 4}")[j % 3 > 0],)),
+                "tenant": cyc("{}", 3, lambda j: (("", "shared", "dash")[j],)),
+                "phase": cyc("{}", 4, lambda j: (
+                    ("host", "device_dispatch", "stall", "stage")[j],))})
+        elif name == "__bus__":
+            kinds = [("bus", "agent.heartbeat", "deliver"), ("bus", "query.ack", "pub"),
+                     ("rpc", "local", "request"), ("rpc", "127.0.0.1:6100", "request")]
+            table(name, {
+                "time_": t, "agent_id": cyc("pem-{}", 3),
+                "kind": cyc("{}", 4, lambda j: (kinds[j][0],)),
+                "topic_class": cyc("{}", 4, lambda j: (kinds[j][1],)),
+                "direction": cyc("{}", 4, lambda j: (kinds[j][2],)),
+                "msgs": i.astype(np.int64) + 10,
+                "bytes": (i.astype(np.int64) + 10) * 128, "errors": ints(0, 3),
+                "lag_p50_ms": rng.uniform(0.1, 2, n),
+                "lag_p99_ms": rng.uniform(2, 50, n),
+                "service_p50_ms": rng.uniform(0.1, 5, n),
+                "service_p99_ms": rng.uniform(5, 100, n),
+                "queue_high_water": ints(0, 16)})
+    return out
+
+
+def _lib_rows(eng, name: str) -> int:
+    """Rows of ``name`` for the library phase: LIB_HTTP_ROWS for
+    http_events, LIB_TELEMETRY_ROWS for a telemetry (``__``) table, and
+    every other table's budget over its bytes per row as the ring counts
+    them, so the table is full and nothing has expired."""
+    if name == "http_events":
+        return LIB_HTTP_ROWS
+    if name.startswith("__"):
+        return LIB_TELEMETRY_ROWS
+    t = eng.tables[name]
+    return t.max_bytes // t._backend.row_bytes
+
+
+def load_library_tables(engines, n_of) -> dict:
+    """``init_schemas`` on each engine (the default budgets), then every
+    table's rows appended in LIB_APPEND_ROWS-row batches through
+    ``Engine.append_data``; returns {table: rows}."""
+    from pixie_tpu_torch.ingest.schemas import init_schemas
+    from pixie_tpu_torch.types import DataType, HostBatch, StringDictionary
+    from pixie_tpu_torch.types.dtypes import host_dtypes
+
+    for eng in engines:
+        init_schemas(eng)
+    data = _lib_tables(lambda name: n_of(engines[0], name))
+    rows = {}
+    for name, cols in data.items():
+        rel = engines[0].tables[name].relation
+        assert set(cols) == set(rel.column_names), (name, set(rel.column_names) ^ set(cols))
+        n = len(cols["time_"])
+        dicts = {c: StringDictionary(v[1]) for c, v in cols.items()
+                 if rel.col_type(c) == DataType.STRING}
+        planes = {}
+        for c, dt in rel.items():
+            v = cols[c]
+            if dt == DataType.STRING:
+                planes[c] = (v[0],)
+            elif dt == DataType.UINT128:
+                planes[c] = v
+            else:
+                planes[c] = (np.asarray(v).astype(host_dtypes(dt)[0]),)
+        for off in range(0, n, LIB_APPEND_ROWS):
+            s = slice(off, min(off + LIB_APPEND_ROWS, n))
+            hb = HostBatch(relation=rel, cols={
+                c: tuple(p[s] for p in ps) for c, ps in planes.items()
+            }, length=s.stop - s.start, dicts=dicts)
+            for eng in engines:
+                eng.append_data(name, hb)
+        for eng in engines:
+            assert eng.tables[name].num_rows == n, (name, eng.tables[name].num_rows)
+            assert eng.tables[name].stats().batches_expired == 0, name
+        rows[name] = n
+    return rows
+
+
+def _quantile_columns(plan):
+    """(sink name -> the columns derived from a t-digest quantile, whether
+    the plan keeps row order: no aggregate, join or union)."""
+    from pixie_tpu_torch.exec.plan import AggOp, JoinOp, MapOp, ResultSinkOp, UnionOp
+    from pixie_tpu_torch.planner.rules import _expr_columns
+
+    tainted, sinks, ordered = {}, {}, True
+    for nid in plan.topo_order():
+        node = plan.nodes[nid]
+        op = node.op
+        t = set().union(*(tainted.get(i, set()) for i in node.inputs))
+        if isinstance(op, AggOp):
+            ordered = False
+            t = {a.out_name for a in op.aggs if a.uda_name in LIB_QUANTILE_UDAS}
+        elif isinstance(op, MapOp):
+            t = {n for n, e in op.exprs if _expr_columns(e, set()) & t}
+        elif isinstance(op, (JoinOp, UnionOp)):
+            ordered = False
+            t = t | {n + getattr(op, "suffix", "") for n in t}
+        elif isinstance(op, ResultSinkOp):
+            sinks[op.name] = t
+        tainted[nid] = t
+    return sinks, ordered
+
+
+def _row_order(d, rel, loose):
+    from pixie_tpu_torch.types import DataType
+
+    keys = []
+    for c, dt in rel.items():
+        if dt == DataType.UINT128:
+            keys += [d[c][:, 0], d[c][:, 1]]
+        elif c not in loose and dt != DataType.FLOAT64:
+            keys.append(d[c].astype(str) if dt == DataType.STRING else d[c])
+    n = len(next(iter(d.values()))) if d else 0
+    return np.lexsort(list(reversed(keys))) if keys else np.arange(n)
+
+
+def check_library_output(what: str, got, ref, loose: set, ordered: bool):
+    """One output of a script against the same output of a reference
+    engine (the card's against the CPU engine's here; the CPU engine's
+    against the JAX package's in ``tests/test_torch_scripts.py``): keys,
+    strings and integers exact (count_distinct included), FLOAT64 at
+    rtol 1e-5, t-digest-derived columns (and their JSON) at rtol 0.05;
+    rows in order for row scripts, else as sets sorted by the exact
+    columns. ``loose`` and ``ordered`` come from ``_quantile_columns``."""
+    from pixie_tpu_torch.types import DataType
+
+    assert list(got.relation.column_names) == list(ref.relation.column_names), what
+    assert got.length == ref.length, (what, got.length, ref.length)
+    g, r = got.to_pydict(), ref.to_pydict()
+    if not ordered:
+        og, orr = (_row_order(g, got.relation, loose),
+                   _row_order(r, got.relation, loose))
+        g = {k: np.asarray(v)[og] for k, v in g.items()}
+        r = {k: np.asarray(v)[orr] for k, v in r.items()}
+    for c, dt in got.relation.items():
+        assert dt.name == ref.relation.col_type(c).name, f"{what}.{c}"
+        if dt == DataType.FLOAT64:
+            np.testing.assert_allclose(
+                np.asarray(g[c], np.float64), np.asarray(r[c], np.float64),
+                rtol=LIB_QUANTILE_RTOL if c in loose else LIB_FLOAT_RTOL,
+                equal_nan=True, err_msg=f"{what}.{c}")
+        elif dt == DataType.STRING and c in loose:
+            for x, y in zip(g[c], r[c]):
+                if x != y:
+                    dx, dy = json.loads(x), json.loads(y)
+                    assert sorted(dx) == sorted(dy), f"{what}.{c}"
+                    np.testing.assert_allclose(
+                        [dx[k] for k in sorted(dx)], [dy[k] for k in sorted(dy)],
+                        rtol=LIB_QUANTILE_RTOL, equal_nan=True,
+                        err_msg=f"{what}.{c}")
+        else:
+            assert np.array_equal(np.asarray(g[c]), np.asarray(r[c])), f"{what}.{c}"
+
+
+def phase_library(device, n_of=_lib_rows, turns: int = 3) -> dict:
+    """The shipped library on a fresh engine with the canonical schemas
+    and default budgets: every Stirling table full to its budget (32 MiB
+    each; http_events cut to LIB_HTTP_ROWS), the telemetry tables at
+    LIB_TELEMETRY_ROWS rows. Each of the 80 scripts (not px/agent_status)
+    runs once on a CPU engine over the same rows, then on the card: a
+    warm-up and ``turns`` timed turns, each checked against the CPU
+    answer, with the kernels' launch counters set to 0 before the timed
+    turns and read after them, and one more turn under torch.profiler
+    (the card's idle share). Returns {kernel: {script: launches per
+    query}}."""
+    import torch
+
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+    from pixie_tpu_torch.planner import CompilerState, compile_pxl
+    from pixie_tpu_torch.scripts import list_scripts, load_script
+
+    t0 = time.perf_counter()
+    eng, cpu = Engine(device=device), Engine(device="cpu")
+    rows = load_library_tables([eng, cpu], n_of)
+    print(json.dumps({"phase": "library_append", "rows": rows,
+                      "secs": time.perf_counter() - t0,
+                      "resident_bytes": sum(t.resident_bytes
+                                            for t in eng.tables.values())}))
+    names = [n for n in list_scripts() if n not in LIB_SKIP]
+    assert len(names) == 80, len(names)
+    launches = {"dense_fold": {}, "hist_fold": {}}
+    totals = {"cpu_secs": 0.0, "card_secs": 0.0}
+    for name in names:
+        pxl = load_script(name).pxl
+        compiled = compile_pxl(pxl, CompilerState(
+            schemas={n: t.relation for n, t in eng.tables.items()},
+            registry=eng.registry, now_ns=0, max_output_rows=10_000))
+        loose, ordered = _quantile_columns(compiled.plan)
+        t1 = time.perf_counter()
+        ref = cpu.execute_query(pxl)
+        cpu_secs = time.perf_counter() - t1
+
+        def run_checked_lib():
+            out = eng.execute_query(pxl)
+            assert sorted(out) == sorted(ref), name
+            for k in out:
+                check_library_output(f"{name}:{k}", out[k], ref[k], loose[k],
+                                     ordered)
+            return out
+
+        run_checked_lib()
+        secs = []
+        dense_fold.launches = hist_fold.launches = 0
+        for _ in range(turns):
+            t1 = time.perf_counter()
+            out = eng.execute_query(pxl)
+            secs.append(time.perf_counter() - t1)
+        counts = {"dense_fold": dense_fold.launches / turns,
+                  "hist_fold": hist_fold.launches / turns}
+        for k, v in out.items():
+            check_library_output(f"{name}:{k}", v, ref[k], loose[k], ordered)
+        busy = busy_share(lambda: eng.execute_query(pxl))
+        for k, v in counts.items():
+            if v:
+                launches[k][name] = v
+        med = float(np.median(secs))
+        totals["cpu_secs"] += cpu_secs
+        totals["card_secs"] += med
+        jd = eng.last_join_decision
+        print(json.dumps({
+            "phase": "library", "script": name, "median_secs": med,
+            "secs": secs, "rows_out": {k: v.length for k, v in out.items()},
+            "launches": counts, "cpu_engine_secs": cpu_secs,
+            "join_strategy": jd.strategy if jd is not None else None,
+            "idle_share": busy["idle_share"],
+            "device_busy_s": busy["device_busy_s"], "checked": True}))
+    print(json.dumps({"phase": "library_total", "scripts": len(names),
+                      "checked": len(names), **totals,
+                      "secs": time.perf_counter() - t0,
+                      "scripts_with_dense_fold": len(launches["dense_fold"]),
+                      "scripts_with_hist_fold": len(launches["hist_fold"])}))
+    assert launches["dense_fold"] and launches["hist_fold"], launches
+    return launches
+
+
+# -- the k8s metadata context ------------------------------------------------------
+MD_SERVICES, MD_NAMESPACES, MD_NODES = 200, 20, 50
+MD_UNKNOWN_SHARE = 0.01
+MD_QUERIES = {
+    "service": """import px
+df = px.DataFrame(table='process_stats')
+df.service = df.ctx['service']
+df.rss_mb = df.rss_bytes / 1000000.0
+df = df.groupby('service').agg(n=('rss_mb', px.count), rss=('rss_mb', px.mean))
+px.display(df)
+""",
+    "pod": """import px
+df = px.DataFrame(table='process_stats')
+df.pod_name = df.ctx['pod']
+df = df.groupby('pod_name').agg(n=('rss_bytes', px.count))
+px.display(df)
+""",
+    "namespace": """import px
+df = px.DataFrame(table='process_stats')
+df.ns = df.ctx['namespace']
+df.rss_mb = df.rss_bytes / 1000000.0
+df = df.groupby('ns').agg(n=('rss_mb', px.count), rss=('rss_mb', px.max))
+px.display(df)
+""",
+}
+
+
+def metadata_state(ps: dict, seed: int = SEED + 5):
+    """A MetadataState over the group_by phase's processes: its GB_PODS
+    pods in MD_SERVICES services and MD_NAMESPACES namespaces on
+    MD_NODES nodes, every process but a MD_UNKNOWN_SHARE of them known.
+    Returns (state, pod of each upid index or -1)."""
+    from pixie_tpu_torch.metadata import MetadataState, UPID
+
+    rng = np.random.default_rng(seed)
+    md = MetadataState()
+    for s in range(MD_SERVICES):
+        md.add_service(f"s-{s}", f"svc-{s}", f"ns-{s % MD_NAMESPACES}")
+    for p in range(GB_PODS):
+        s = p % MD_SERVICES
+        md.add_pod(f"p-{p}", f"pod-{p}", f"ns-{s % MD_NAMESPACES}",
+                   node_name=f"node-{p % MD_NODES}", service_uids=(f"s-{s}",))
+    known = rng.random(GB_UPIDS) >= MD_UNKNOWN_SHARE
+    pod_of = np.where(known, ps["pod_of"], -1)
+    for u in np.flatnonzero(known):
+        hi, lo = int(ps["hi"][u]), int(ps["lo"][u])
+        md.add_process(UPID(hi >> 32, hi & 0xFFFFFFFF, lo), f"p-{pod_of[u]}")
+    return md, pod_of
+
+
+def expect_metadata(ps: dict, pod_of, name: str) -> dict:
+    """numpy over the same mapping: {key: (count, rss aggregate)}."""
+    u = ps["u"]
+    pod = pod_of[u]
+    svc = np.where(pod >= 0, pod % MD_SERVICES, -1)
+    if name == "pod":
+        key = pod
+        label = lambda k: f"ns-{(k % MD_SERVICES) % MD_NAMESPACES}/pod-{k}"
+    elif name == "service":
+        key = svc
+        label = lambda k: f"ns-{k % MD_NAMESPACES}/svc-{k}"
+    else:
+        key = np.where(svc >= 0, svc % MD_NAMESPACES, -1)
+        label = lambda k: f"ns-{k}"
+    rss = ps["cols"]["rss_bytes"].astype(np.float32) / np.float32(1e6)
+    out = {}
+    uniq, inv = np.unique(key, return_inverse=True)
+    cnt = np.bincount(inv)
+    if name == "service":
+        agg = np.bincount(inv, weights=rss.astype(np.float64)) / cnt
+    elif name == "namespace":
+        agg = np.full(len(uniq), -np.inf)
+        np.maximum.at(agg, inv, rss)
+    else:
+        agg = np.zeros(len(uniq))
+    for k, c, a in zip(uniq, cnt, agg):
+        out["" if k < 0 else label(int(k))] = (int(c), float(a))
+    return out
+
+
+def phase_metadata(eng, ps: dict) -> None:
+    """df.ctx['service'], ['pod'] and ['namespace'] group-bys over the
+    group_by phase's resident process_stats, each checked against numpy
+    over the same mapping: a checked warm-up, three timed turns and one
+    turn under torch.profiler (the card's idle share)."""
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    t_phase = t0 = time.perf_counter()
+    md, pod_of = metadata_state(ps)
+    eng.set_metadata_state(md)
+    setup = time.perf_counter() - t0
+    for name, q in MD_QUERIES.items():
+        want = expect_metadata(ps, pod_of, name)
+
+        def check(out):
+            d = out.to_pydict()
+            key = next(iter(d))
+            got = dict(zip(d[key].tolist(), d["n"].tolist()))
+            assert got == {k: v[0] for k, v in want.items()}, name
+            if "rss" in d:
+                for k, v in zip(d[key].tolist(), d["rss"].tolist()):
+                    np.testing.assert_allclose(v, want[k][1], rtol=1e-5,
+                                               err_msg=f"{name} {k}")
+
+        check(eng.execute_query(q)["output"])
+        secs = []
+        dense_fold.launches = hist_fold.launches = 0
+        for _ in range(3):
+            t1 = time.perf_counter()
+            out = eng.execute_query(q)["output"]
+            secs.append(time.perf_counter() - t1)
+            check(out)
+        launches = {"dense_fold": dense_fold.launches / 3,
+                    "hist_fold": hist_fold.launches / 3}
+        st = eng.last_stats
+        print(json.dumps({
+            "phase": "metadata", "ctx": name, "rows": len(ps["u"]),
+            "groups": len(want), "unknown_rows": want.get("", (0, 0))[0],
+            "state_secs": setup, "secs": secs,
+            "median_secs": float(np.median(secs)),
+            "rows_per_s": len(ps["u"]) / float(np.median(secs)),
+            "resident_windows": st.resident_windows,
+            "staged_windows": st.staged_windows, "launches": launches,
+            **busy_share(lambda: eng.execute_query(q)), "checked": True}))
+    print(json.dumps({"phase": "metadata_total",
+                      "secs": time.perf_counter() - t_phase}))
 
 
 def main() -> int:
@@ -1797,6 +2430,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        print(json.dumps({"elapsed_s": time.perf_counter() - t_start,
+                          "after": after}))
+
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pixie_tpu_torch.config import clear_flag, set_flag
     from pixie_tpu_torch.ops import cuda_lib
@@ -1849,6 +2488,7 @@ def main() -> int:
 
     print(json.dumps({"batch_to_digest": profile_digest(replay, device)}))
 
+    elapsed("kernel checks")
     launches = phase_steady_state(eng, expect)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1858,19 +2498,29 @@ def main() -> int:
     phase_tail(eng, replay)
     del eng, table
     gc.collect()
+    elapsed("window path")
     # hist_fold's launches in the group_by phase's quantile query, per
     # groupby_impl form (``launches`` stays the steady state's count).
     hist = next(k for k in kernels if k["name"] == "hist_fold")
     hist["launches_group_by"] = phase_group_by(device)
+    elapsed("group_by and metadata")
     gc.collect()
     torch.cuda.empty_cache()
     phase_joins(device)
+    elapsed("joins")
+    gc.collect()
+    torch.cuda.empty_cache()
+    library = phase_library(device)
+    elapsed("library")
+    for k in kernels:
+        k["launches_library"] = library[k["name"]]
     gc.collect()
     torch.cuda.empty_cache()
     phase_eviction(replay, expect, device)
     gc.collect()
     torch.cuda.empty_cache()
     phase_full_budget(device)
+    elapsed("eviction and full budget")
 
     print(card)  # nvidia-smi's "name, power.limit" line, as it gave it
     print(json.dumps({"kernels": kernels}))

@@ -136,3 +136,9 @@ define_flag("device_join_min_rows", 1 << 15,
             "together try the host dict join first (N:1 builds only); "
             "larger inputs, right/outer and N:M joins go to the bulk "
             "strategies.")
+define_flag("table_store_data_limit_mb", 1024 + 256,
+            "Byte budget across ALL canonical ingest tables (reference "
+            "PL_TABLE_STORE_DATA_LIMIT_MB, default 1.25GB); <= 0 = unbounded.")
+define_flag("table_store_http_events_percent", 40,
+            "Percent of the table-store budget devoted to http_events "
+            "(reference PL_TABLE_STORE_HTTP_EVENTS_PERCENT).")

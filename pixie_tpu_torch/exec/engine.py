@@ -25,6 +25,11 @@ inputs and routes by shape, device and sketches. A stream that feeds
 more than one consumer is materialized once and shared, unless it is a
 pure table scan (each consumer re-reads the resident windows).
 
+A UDTF source (``px.GetTables()`` and the other introspection
+functions) runs on the host and enters the plan as a materialized
+batch. ``set_metadata_state`` binds the metadata functions
+(``df.ctx[...]``) to a snapshot of k8s metadata.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card it raises rather than carrying on on the CPU. Not ported
 here: the TPU's scan batching of resident windows (``update_all``,
@@ -45,6 +50,7 @@ import torch
 
 from ..config import get_flag
 from ..types.batch import HostBatch, bucket_capacity
+from ..types.relation import Relation
 from ..udf.registry import Registry, default_registry
 from .fragment import _pure_select_map, compile_fragment
 from .joins import (
@@ -64,6 +70,7 @@ from .plan import (
     MapOp,
     MemorySourceOp,
     ResultSinkOp,
+    UDTFSourceOp,
     UnionOp,
 )
 from .stream import (
@@ -199,6 +206,9 @@ class Engine:
         # Learned join output capacities per (mode, plan, node), LRU
         # (joins.learned_capacity / remember_capacity).
         self._join_capacity_cache: dict = {}
+        # The k8s metadata snapshot the metadata functions are bound to
+        # (set_metadata_state); None until one is attached.
+        self.metadata_state = None
 
     @property
     def tables(self) -> dict:
@@ -229,6 +239,19 @@ class Engine:
             name, device_window_rows=self.window_rows, device=self.device
         )
         return self.table_store.append_data(name, data, time_cols=time_cols)
+
+    def set_metadata_state(self, state) -> None:
+        """Attach k8s metadata: rebinds the metadata functions to a
+        snapshot of ``state`` (reference: per-query AgentMetadataState)
+        on a clone of this engine's registry, keeping every other
+        registration. The UPID lookup table goes to the device on the
+        first query that reads it and stays there until the next call."""
+        from ..metadata.funcs import METADATA_FUNC_NAMES, register_metadata_funcs
+
+        self.metadata_state = state
+        reg = self.registry.clone("engine", exclude=METADATA_FUNC_NAMES)
+        register_metadata_funcs(reg, state)
+        self.registry = reg
 
     # -- execution -----------------------------------------------------------
     def execute_query(self, query: str, now_ns: int = 0,
@@ -304,6 +327,8 @@ class Engine:
                 results[nid] = _Stream(
                     base.relation, dict(base.dicts), chain, tablets, op
                 )
+            elif isinstance(op, UDTFSourceOp):
+                results[nid] = self._run_udtf(op)
             elif isinstance(op, (MapOp, FilterOp, AggOp, LimitOp)):
                 st = results[node.inputs[0]]
                 if isinstance(st, HostBatch):
@@ -367,6 +392,20 @@ class Engine:
                 if not pure_scan:
                     results[nid] = self._run_fragment(st, stats, cancel)
         return outputs
+
+    def _run_udtf(self, op: UDTFSourceOp) -> HostBatch:
+        """Execute a UDTF source (``udtf_source_node.h`` analog): call its
+        fn with this engine as context and shape the rows to the declared
+        relation. The rows are host data; operators after the source
+        stage them like any materialized batch."""
+        udtf = self.registry.get_udtf(op.name)
+        args = dict(op.args)
+        for entry in udtf.init_args:  # declared defaults (3-tuples)
+            if len(entry) == 3 and entry[0] not in args:
+                args[entry[0]] = entry[2]
+        data = udtf.fn(self, **args)
+        rel = Relation(list(udtf.relation))
+        return HostBatch.from_pydict(data, relation=rel, time_cols=())
 
     @staticmethod
     def _as_stream(hb: HostBatch) -> _Stream:

@@ -69,16 +69,20 @@ def _literal_value(lit: Literal, col: str, dicts) -> int | None | str:
     return None
 
 
-def _constraints(pred, out: dict, dicts) -> bool:
-    """Fold one predicate tree into ``out`` ({col: (lo, hi)}). Returns
-    False when the predicate is unsatisfiable (EMPTY). Unrecognized
-    subtrees contribute nothing (a conjunction can only narrow, so
-    ignoring a conjunct is safe; disjunctions and negations are skipped
-    whole)."""
+def _constraints(pred, out: dict, dicts, source) -> bool:
+    """Fold one predicate tree into ``out`` ({source col: (lo, hi)}).
+    ``source(col)`` is the table column a chain column passes through
+    unchanged, or None for a computed one, whose values the ingest
+    sketch does not describe: its comparisons constrain nothing (and a
+    string literal is looked up in the source column's dictionary, never
+    in that of a table column the chain has overwritten). Returns False
+    when the predicate is unsatisfiable (EMPTY). Unrecognized subtrees
+    contribute nothing (a conjunction can only narrow, so ignoring a
+    conjunct is safe; disjunctions and negations are skipped whole)."""
     if not isinstance(pred, FuncCall):
         return True
     if pred.name == "logicalAnd":
-        return all(_constraints(a, out, dicts) for a in pred.args)
+        return all(_constraints(a, out, dicts, source) for a in pred.args)
     if pred.name not in _CMP or len(pred.args) != 2:
         return True
     a, b = pred.args
@@ -87,12 +91,15 @@ def _constraints(pred, out: dict, dicts) -> bool:
         a, b, op = b, a, _FLIP[op]
     if not (isinstance(a, ColumnRef) and isinstance(b, Literal)):
         return True
-    v = _literal_value(b, a.name, dicts)
+    col = source(a.name)
+    if col is None:
+        return True
+    v = _literal_value(b, col, dicts)
     if v is EMPTY:
         return False
     if v is None:
         return True
-    lo, hi = out.get(a.name, (None, None))
+    lo, hi = out.get(col, (None, None))
     if op == "eq":
         lo = v if lo is None else max(lo, v)
         hi = v if hi is None else min(hi, v)
@@ -102,7 +109,7 @@ def _constraints(pred, out: dict, dicts) -> bool:
     else:  # gt / ge
         b_lo = v + 1 if op == "gt" else v
         lo = b_lo if lo is None else max(lo, b_lo)
-    out[a.name] = (lo, hi)
+    out[col] = (lo, hi)
     return True
 
 
@@ -110,28 +117,30 @@ def predicate_ranges(ops, dicts):
     """Walk a linear op chain; return {source_col: (lo|None, hi|None)},
     EMPTY (prune everything), or None (nothing to skip on).
 
-    Constraints from a FilterOp apply to the chain's CURRENT column
-    names; they map back to source columns through every earlier MapOp
-    via trace_map_renames: a rename survives, a computed column drops
-    the constraint.
+    A FilterOp's columns map back to source columns through every
+    earlier MapOp via trace_map_renames before its constraints are
+    read: a rename survives, a computed column (even one that took a
+    table column's name) contributes no constraint.
     """
     ranges: dict = {}
     maps_before: list = []
+
+    def source(col):
+        mapping = {col: col}
+        for m in reversed(maps_before):
+            mapping = trace_map_renames(m, mapping)
+            if mapping is None:
+                return None
+        return mapping[col]
+
     for op in ops:
         if isinstance(op, MapOp):
             maps_before.append(op)
         elif isinstance(op, FilterOp):
             local: dict = {}
-            if not _constraints(op.predicate, local, dicts):
+            if not _constraints(op.predicate, local, dicts, source):
                 return EMPTY
-            mapping = {c: c for c in local}
-            for m in reversed(maps_before):
-                mapping = trace_map_renames(m, mapping)
-                if mapping is None:
-                    mapping = {}
-                    break
-            for out_name, src_name in mapping.items():
-                lo, hi = local[out_name]
+            for src_name, (lo, hi) in local.items():
                 cur = ranges.get(src_name, (None, None))
                 ranges[src_name] = (
                     lo if cur[0] is None else (cur[0] if lo is None else max(cur[0], lo)),

@@ -30,6 +30,7 @@ from ..exec.plan import (
     MemorySourceOp,
     Plan,
     ResultSinkOp,
+    UDTFSourceOp,
     UnionOp,
 )
 from ..types.dtypes import DataType
@@ -454,9 +455,9 @@ class CtxAccessor:
         self.df = df
 
     def __getitem__(self, key: str) -> ColumnExpr:
-        raise PxLError(
-            f"df.ctx[{key!r}]: metadata is not in this slice of the port"
-        )
+        from ..metadata.resolver import resolve_ctx  # cycle-free at call time
+
+        return resolve_ctx(self.df, key)
 
 
 @dataclass
@@ -485,6 +486,49 @@ class PlanBuilder:
         if select is not None:
             df = df.project(list(select), lineno)
         return df
+
+    def udtf_source(self, name: str, lineno=None, **kwargs) -> DataFrameObj:
+        """px.<UDTFName>(...) -> DataFrame (udtf.h source surface)."""
+        from ..types.relation import Relation as _Relation
+
+        udtf = self.registry.get_udtf(name)
+        declared = {e[0] for e in udtf.init_args}
+        unknown = set(kwargs) - declared
+        if unknown:
+            raise PxLError(
+                f"px.{name}: unknown arguments {sorted(unknown)}; "
+                f"declared: {sorted(declared)}", lineno)
+        # Required-arg + type check at compile time (udtf.h checks init
+        # args during planning, not at the remote source node). Required-
+        # ness comes from the declaration — (name, type) is required,
+        # (name, type, default) optional — never from fn introspection.
+        for entry in udtf.init_args:
+            arg_name, arg_type = entry[0], entry[1]
+            if udtf.arg_required(arg_name) and arg_name not in kwargs:
+                raise PxLError(
+                    f"px.{name}: missing required argument {arg_name!r}", lineno
+                )
+            if arg_name in kwargs:
+                v = kwargs[arg_name]
+                ok = (
+                    isinstance(v, bool)
+                    if arg_type == DataType.BOOLEAN
+                    else isinstance(v, int) and not isinstance(v, bool)
+                    if arg_type in (DataType.INT64, DataType.TIME64NS)
+                    else isinstance(v, (int, float)) and not isinstance(v, bool)
+                    if arg_type == DataType.FLOAT64
+                    else isinstance(v, str)
+                    if arg_type == DataType.STRING
+                    else True
+                )
+                if not ok:
+                    raise PxLError(
+                        f"px.{name}: argument {arg_name!r} must be "
+                        f"{arg_type.name}, got {type(v).__name__}", lineno)
+        rel = _Relation(list(udtf.relation))
+        op = UDTFSourceOp(name=name, args=tuple(sorted(kwargs.items())))
+        nid = self.plan.add(op, [], relation=rel)
+        return DataFrameObj(self, nid, rel)
 
     def display(self, df: DataFrameObj, name: str = "output", lineno=None):
         if not isinstance(df, DataFrameObj):

@@ -184,6 +184,8 @@ class PxModule:
         if name in _SEMANTIC_TYPES:
             return _semantic_cast(name)
         reg = self._builder.registry
+        if reg.has_udtf(name):
+            return lambda **kw: self._builder.udtf_source(name, **kw)
         if name in _AGG_NAMES and reg.has_uda(name):
             return AggFuncMarker(name, has_scalar=reg.has_scalar(name))
         if reg.has_scalar(name):

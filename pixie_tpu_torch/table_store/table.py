@@ -18,6 +18,7 @@ batch queue with byte-budget expiry).
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
@@ -32,6 +33,35 @@ from .device_cache import DeviceWindowCache, stage_window
 TIME_COLUMN = "time_"
 
 
+@dataclass
+class TableStats:
+    """A table's size and ring counters (the JAX package's
+    ``TableStats`` for a ring that is neither compacted nor tiered:
+    every live byte is hot, and the cold fields stay 0)."""
+
+    bytes: int
+    num_batches: int
+    batches_added: int
+    batches_expired: int
+    bytes_added: int
+    min_time: int  # of the oldest live batch; -1 when empty
+    num_rows: int
+    compacted_batches: int = 0
+    cold_bytes: int = 0
+    cold_rows: int = 0
+    cold_raw_bytes: int = 0
+    demotions: int = 0
+    evictions: int = 0
+
+    @property
+    def hot_bytes(self) -> int:
+        return self.bytes
+
+    @property
+    def hot_rows(self) -> int:
+        return self.num_rows
+
+
 class _PyBackend:
     """Pure-numpy ring of appended batches in row-id order, with
     byte-budget expiry of the oldest batches."""
@@ -44,6 +74,7 @@ class _PyBackend:
         self.lock = threading.Lock()
         self.batches: list = []  # [first_row_id, planes, min_t, max_t]
         self.next_row_id = 0
+        self.counters = dict(batches_added=0, batches_expired=0, bytes_added=0)
 
     def _bytes(self) -> int:
         return sum(len(b[1][0]) * self.row_bytes for b in self.batches)
@@ -63,10 +94,23 @@ class _PyBackend:
                     and self._bytes() + n * self.row_bytes > self.max_bytes
                 ):
                     self.batches.pop(0)
+                    self.counters["batches_expired"] += 1
             rid = self.next_row_id
             self.next_row_id += n
             self.batches.append([rid, [p.copy() for p in planes], mn, mx])
+            self.counters["batches_added"] += 1
+            self.counters["bytes_added"] += n * self.row_bytes
             return rid
+
+    def stats(self) -> TableStats:
+        with self.lock:
+            return TableStats(
+                bytes=self._bytes(),
+                num_batches=len(self.batches),
+                min_time=self.batches[0][2] if self.batches else -1,
+                num_rows=self.next_row_id - self._first_row_id(),
+                **self.counters,
+            )
 
     def first_row_id(self) -> int:
         with self.lock:
@@ -393,6 +437,12 @@ class Table:
             length=len(planes[0]) if planes else 0,
             dicts={c: d for c, d in self.dicts.items() if c in set(names)},
         )
+
+    def stats(self) -> TableStats:
+        """Sizes and ring counters (the introspection UDTFs read them)."""
+        if self._backend is None:
+            return TableStats(0, 0, 0, 0, 0, -1, 0)
+        return self._backend.stats()
 
     @property
     def num_rows(self) -> int:

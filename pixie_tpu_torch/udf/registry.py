@@ -18,6 +18,7 @@ class Registry:
         self.name = name
         self._scalar: dict[str, list[ScalarUDFDef]] = {}
         self._uda: dict[str, list[UDADef]] = {}
+        self._udtf: dict[str, object] = {}  # name -> UDTFDef
 
     # -- registration --------------------------------------------------------
     def register_scalar(self, udf: ScalarUDFDef) -> None:
@@ -27,6 +28,7 @@ class Registry:
                     f"duplicate scalar UDF {udf.name!r} with arg types {udf.arg_types}"
                 )
         self._scalar[udf.name].append(udf)
+        self._ctx_funcs_cache = None  # metadata resolver derives from this
 
     def register_uda(self, uda: UDADef) -> None:
         for existing in self._uda.setdefault(uda.name, []):
@@ -91,6 +93,25 @@ class Registry:
         self.register_uda(d)
         return d
 
+    def register_udtf(self, udtf) -> None:
+        if udtf.name in self._udtf:
+            raise ValueError(f"duplicate UDTF {udtf.name!r}")
+        self._udtf[udtf.name] = udtf
+
+    def udtf(self, name, relation, fn, executor=None, init_args=(), doc=""):
+        from .udtf import UDTFDef, UDTFExecutor
+
+        d = UDTFDef(
+            name=name,
+            relation=tuple(relation),
+            fn=fn,
+            executor=executor or UDTFExecutor.ONE_KELVIN,
+            init_args=tuple(init_args),
+            doc=doc,
+        )
+        self.register_udtf(d)
+        return d
+
     # -- lookup --------------------------------------------------------------
     def has_scalar(self, name: str) -> bool:
         return name in self._scalar
@@ -108,6 +129,14 @@ class Registry:
             raise SignatureError(f"no UDA named {name!r}")
         return resolve_overload(self._uda[name], tuple(arg_types))
 
+    def has_udtf(self, name: str) -> bool:
+        return name in self._udtf
+
+    def get_udtf(self, name: str):
+        if name not in self._udtf:
+            raise SignatureError(f"no UDTF named {name!r}")
+        return self._udtf[name]
+
     def scalar_names(self) -> list[str]:
         return sorted(self._scalar)
 
@@ -120,6 +149,9 @@ class Registry:
     def uda_overloads(self, name: str) -> list[UDADef]:
         return list(self._uda.get(name, []))
 
+    def udtf_names(self) -> list[str]:
+        return sorted(self._udtf)
+
     def clone(self, name: str | None = None, exclude=()) -> "Registry":
         """Shallow copy (defs are frozen), optionally dropping some names —
         used to rebind state-backed funcs (metadata) without losing caller
@@ -128,6 +160,7 @@ class Registry:
         ex = set(exclude)
         out._scalar = {n: list(v) for n, v in self._scalar.items() if n not in ex}
         out._uda = {n: list(v) for n, v in self._uda.items() if n not in ex}
+        out._udtf = {n: v for n, v in self._udtf.items() if n not in ex}
         return out
 
     def docs(self) -> dict[str, str]:

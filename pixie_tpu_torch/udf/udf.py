@@ -130,6 +130,21 @@ def apply_cast(x, have: DataType, want: DataType):
     raise TypeError(f"no device cast {have} -> {want}")
 
 
+def device_constant(array):
+    """``get(device)``: the numpy ``array`` as a tensor on ``device``,
+    copied there on the first call and kept (the id tables of device
+    UDFs go to the card once, not once per window)."""
+    cache: dict = {}
+
+    def get(device):
+        t = cache.get(device)
+        if t is None:
+            t = cache[device] = torch.from_numpy(array).to(device)
+        return t
+
+    return get
+
+
 class SignatureError(TypeError):
     pass
 

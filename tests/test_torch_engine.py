@@ -135,7 +135,7 @@ def _run_both(engines, query, keys, **jax_flags):
 
 def test_http_stats(engines):
     got, ref, frag = _run_both(
-        engines, load_script("px/http_stats"), ["service", "req_path"]
+        engines, load_script("px/http_stats").pxl, ["service", "req_path"]
     )
     assert not frag.uses_dense_fold  # INT64 aggregates: exact i64 folds
     assert len(got["n"]) == 32 * 8
@@ -168,7 +168,7 @@ def test_http_stats_float64(engines):
 
 def test_service_stats(engines):
     got, ref, frag = _run_both(
-        engines, load_script("px/service_stats"), ["service"],
+        engines, load_script("px/service_stats").pxl, ["service"],
         pallas_tdigest="interpret",
     )
     assert not frag.uses_dense_fold

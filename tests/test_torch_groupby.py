@@ -392,7 +392,7 @@ def _no_dense_fragment(stats):
     ("px/redis_flow_graph", ("upid", "service"), ("commands",), ("lat_mean",)),
 ])
 def test_upid_scripts_match_jax(engines, form, script, keys, exact, close):
-    got, stats = _compare(engines, load_script(script), keys, exact, close,
+    got, stats = _compare(engines, load_script(script).pxl, keys, exact, close,
                           max_groups=512, rtol=1e-12)
     n_keys = len(got[keys[0]])
     if script == "px/pods":
@@ -457,7 +457,7 @@ def test_quantiles_by_upid_match_jax(engines, form):
 ])
 def test_dense_scripts_without_dense_domains(engines, form, script, keys,
                                               exact, close, rtol):
-    got, stats = _compare(engines, load_script(script), keys, exact, close,
+    got, stats = _compare(engines, load_script(script).pxl, keys, exact, close,
                           max_groups=256, dense=False, rtol=rtol)
     assert len(got[keys[0]]) == (32 * 8 if script == "px/http_stats" else 32)
     _no_dense_fragment(stats)

@@ -89,10 +89,31 @@ assert eng.last_join_decision.strategy == "radix", eng.last_join_decision
 assert len(out["v_r"]) == 9000 and out["v_r"].sum() == 3 * 2999 * 3000 // 2, out
 clear_flag("join_strategy")
 clear_flag("join_probe_window_rows")
+tables = eng.execute_query(
+    "import px\\npx.display(px.GetTables())"
+)["output"].to_pydict()
+assert sorted(tables["table_name"].tolist()) == ["p", "t"], tables
+from pixie_tpu_torch.metadata import MetadataState, UPID
+md = MetadataState()
+md.add_service("s-1", "payments", "prod")
+md.add_pod("p-1", "payments-0", "prod", service_uids=("s-1",))
+for pid in range(3):
+    md.add_process(UPID(0, pid, pid), "p-1")
+eng.set_metadata_state(md)
+out = eng.execute_query(
+    "import px\\ndf = px.DataFrame(table='p')\\ndf.svc = df.ctx['service']\\n"
+    "px.display(df.groupby('svc').agg(n=('v', px.count),"
+    " pods=('pod', px.count_distinct)))"
+)["output"].to_pydict()
+# upid (hi, lo) = (pid, pid) for pid < 3 is known: rows i = pid mod 35.
+assert sorted(zip(out["svc"].tolist(), out["n"].tolist(),
+                  out["pods"].tolist())) == [
+    ("", 2742, 3), ("prod/payments", 258, 3)], out
 for mod in ("exec.pipeline", "exec.zoneskip", "exec.stream",
             "table_store.device_cache", "table_store.sketches", "ops.hll",
             "ops.groupby", "udf.builtins.collections", "exec.joins",
-            "ops.join", "ops.hashtable"):
+            "ops.join", "ops.hashtable", "metadata.funcs",
+            "metadata.resolver", "udf.builtins.introspection"):
     assert "pixie_tpu_torch." + mod in sys.modules, mod
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]

@@ -576,7 +576,7 @@ def _sorted_cols(hb, keys):
 def test_script_matches_jax(script):
     make, keys = SCRIPTS[script]
     jax_eng, eng = _load(make(), window=1024)
-    q = load_script(script)
+    q = load_script(script).pxl
     jax_set_flag("cpu_fold_threads", 1)
     try:
         ref = jax_eng.execute_query(q)["output"]

@@ -135,11 +135,11 @@ def residency(request):
 
 
 AGG_SCRIPTS = {
-    "http_stats": (lambda: load_script("px/http_stats"),
+    "http_stats": (lambda: load_script("px/http_stats").pxl,
                    ["service", "req_path"], {}),
     "http_stats_float64": (lambda: HTTP_STATS_F64, ["service", "req_path"],
                            {"pallas_dense_fold": "interpret"}),
-    "service_stats": (lambda: load_script("px/service_stats"), ["service"],
+    "service_stats": (lambda: load_script("px/service_stats").pxl, ["service"],
                       {"pallas_tdigest": "interpret"}),
 }
 ROW_SCRIPTS = ("http_data", "http_errors", "http_data_filtered")
@@ -155,7 +155,7 @@ def jax_answers():
     for name, (query, _keys, flags) in AGG_SCRIPTS.items():
         out[name] = _run_jax(eng, query(), **flags)
     for name in ROW_SCRIPTS:
-        out[name] = _run_jax(eng, load_script(f"px/{name}"))
+        out[name] = _run_jax(eng, load_script(f"px/{name}").pxl)
     return out
 
 
@@ -203,7 +203,7 @@ def test_scripts_match_jax_engine(script, residency, depth, jax_answers):
     resident windows or host-staged ones, serial or pipelined."""
     eng = _port_engine(depth)
     query = (AGG_SCRIPTS[script][0]() if script in AGG_SCRIPTS
-             else load_script(f"px/{script}"))
+             else load_script(f"px/{script}").pxl)
     out = eng.execute_query(query)["output"]
     st = eng.last_stats
     assert st.pipeline["depth"] == depth
@@ -224,7 +224,7 @@ def test_attribution_run_matches_default_run(jax_answers):
     """analyze=True runs serially with the stage times filled in, and
     answers as the default run does."""
     eng = _port_engine(2)
-    out = eng.execute_query(load_script("px/http_stats"), analyze=True)["output"]
+    out = eng.execute_query(load_script("px/http_stats").pxl, analyze=True)["output"]
     st = eng.last_stats
     assert st.sync and st.pipeline["depth"] == 1
     assert st.fold_s > 0 and st.finalize_s > 0 and st.wall_s >= st.fold_s
