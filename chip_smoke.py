@@ -71,7 +71,18 @@ without them. In order it:
    on the card (a warm-up, three timed turns, one under torch.profiler)
    and checked against the port's CPU engine over the same rows, with
    each kernel's launches per script;
-9. prints one ``{"kernels": [...]}`` line and, last, the device line.
+9. the analysis phase (the plan verifier and the bounds pass that every
+   compile runs): a 2^23-row table of 20,000 INT64 keys in [0, 2^40)
+   (no dense domain) in 2^21-row resident windows with ingest sketches
+   on, grouped with ``bounds_presize`` on (32768 groups at once) and off
+   (the 4096-group ladder), both answers equal to numpy's, with the
+   rebuckets, windows folded and seconds per query; the table joined to
+   its own group-by (the plan's join capacity beside the join's
+   decision and retries); and, in the library phase, two bad scripts
+   refused before anything reaches the card, every script verified
+   clean with its compile timed cold and warm, and each query's folded
+   rows, groups and allocation peak held against its report;
+10. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -1804,6 +1815,310 @@ def phase_joins(device) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+# -- the plan analysis layer ------------------------------------------------------
+AN_ROWS = 1 << 23
+AN_KEYS = 20_000  # distinct INT64 keys in [0, 2^40): no dense domain
+AN_MAX_ROWS = 1 << 20  # max_output_rows: every group of the answer
+AN_TURNS = 3
+AN_AGG = """import px
+df = px.DataFrame(table='keyed')
+px.display(df.groupby('key').agg(n=('value', px.count), mx=('value', px.max)))
+"""
+# The N:1 eager-aggregate shape: the build side is the table's own
+# group-by on the join key, which the run-time sketches cannot see.
+AN_JOIN = """import px
+df = px.DataFrame(table='keyed')
+agg = df.groupby('key').agg(n=('value', px.count))
+j = df.merge(agg, how='inner', left_on='key', right_on='key',
+             suffixes=['', '_a'])
+px.display(j.groupby('key').agg(rows=('value', px.count), n=('n', px.max)))
+"""
+AN_BAD = {
+    # The frontend binds every column it is given: an unbound column
+    # fails there (PxLError), in both packages, before the verifier.
+    "unbound_column": ("import px\ndf = px.DataFrame(table='http_events')\n"
+                       "df = df[df.nope > 1]\npx.display(df)\n", "PxLError"),
+    # A host-dict UDF with a column where a literal belongs passes the
+    # frontend; the verifier refuses it (udf-signature).
+    "host_dict_column_arg": (
+        "import px\ndf = px.DataFrame(table='http_events')\n"
+        "df.x = px.pluck(df.req_path, df.req_method)\npx.display(df)\n",
+        "PlanCheckError"),
+}
+
+
+def make_keyed(n: int, keys: int, seed: int = SEED + 6) -> dict:
+    """``n`` rows of an INT64 key drawn uniformly from ``keys`` distinct
+    values in [0, 2^40), an INT64 value, and ``time_``; with numpy's
+    answers to AN_AGG (sorted keys, counts, max value per key)."""
+    rng = np.random.default_rng(seed)
+    pool = np.unique(rng.integers(0, 1 << 40, keys + 64))[:keys]
+    assert len(pool) == keys
+    rng.shuffle(pool)
+    key = pool[rng.integers(0, keys, n)].astype(np.int64)
+    value = rng.integers(0, 1 << 40, n).astype(np.int64)
+    uniq, inv, counts = np.unique(key, return_inverse=True,
+                                  return_counts=True)
+    mx = np.full(len(uniq), np.iinfo(np.int64).min)
+    np.maximum.at(mx, inv, value)
+    return {"key": key, "value": value, "uniq": uniq, "counts": counts,
+            "max": mx}
+
+
+def load_keyed(kd: dict, device, window: int = WINDOW):
+    """An Engine holding ``kd`` as the table ``keyed``, appended in
+    ``window``-row batches (residency and ingest sketches on)."""
+    from pixie_tpu_torch import Engine
+
+    n = len(kd["key"])
+    eng = Engine(window_rows=window, device=device)
+    t0 = time.perf_counter()
+    for off in range(0, n, window):
+        s = slice(off, min(off + window, n))
+        eng.append_data("keyed", {
+            "time_": np.arange(s.start, s.stop, dtype=np.int64),
+            "key": kd["key"][s], "value": kd["value"][s]})
+    eng.append_secs = time.perf_counter() - t0
+    return eng
+
+
+def _sorted_out(out, by: str) -> dict:
+    d = out.to_pydict()
+    order = np.argsort(d[by], kind="stable")
+    return {c: np.asarray(v)[order] for c, v in d.items()}
+
+
+def _compiled_max_groups(eng, query: str) -> list:
+    """The max_groups of each AggOp of ``query`` as the engine compiles
+    it (its schemas, registry and sketch snapshot)."""
+    from pixie_tpu_torch.exec.plan import AggOp
+    from pixie_tpu_torch.planner import CompilerState, compile_pxl
+
+    plan = compile_pxl(query, CompilerState(
+        schemas={n: t.relation for n, t in eng.tables.items()},
+        registry=eng.registry, max_output_rows=AN_MAX_ROWS,
+        table_stats=eng._compile_table_stats())).plan
+    return [plan.nodes[nid].op.max_groups for nid in plan.topo_order()
+            if isinstance(plan.nodes[nid].op, AggOp)]
+
+
+def phase_analysis(device, rows: int = AN_ROWS, keys: int = AN_KEYS,
+                   window: int = WINDOW, turns: int = AN_TURNS) -> dict:
+    """(a) Group presizing: ``rows`` rows of ``keys`` distinct INT64 keys
+    in ``window``-row resident windows, AN_AGG with ``bounds_presize`` on
+    and off, each answer equal to numpy's, with the compiled max_groups,
+    the rebuckets, the windows folded and the seconds per query (median
+    of ``turns`` after a warm-up). (b) Planned join capacity: AN_JOIN,
+    checked against numpy, with the plan's join capacity beside the
+    join's decision and retries. Returns the printed records."""
+    from pixie_tpu_torch.config import override_flag
+
+    t0 = time.perf_counter()
+    kd = make_keyed(rows, keys)
+    eng = load_keyed(kd, device, window)
+    sk = eng._compile_table_stats()["keyed"]
+    print(json.dumps({"phase": "analysis_append", "rows": rows,
+                      "keys": keys, "secs": eng.append_secs,
+                      "make_secs": time.perf_counter() - t0 - eng.append_secs,
+                      "sketch_rows": sk["rows"], "key_ndv": sk["ndv"]["key"]}))
+
+    def check_agg(out):
+        got = _sorted_out(out, "key")
+        np.testing.assert_array_equal(got["key"], kd["uniq"])
+        np.testing.assert_array_equal(got["n"], kd["counts"])
+        np.testing.assert_array_equal(got["mx"], kd["max"])
+
+    def check_join(out):
+        got = _sorted_out(out, "key")
+        np.testing.assert_array_equal(got["key"], kd["uniq"])
+        np.testing.assert_array_equal(got["rows"], kd["counts"])
+        np.testing.assert_array_equal(got["n"], kd["counts"])
+
+    def timed(query, check):
+        check(eng.execute_query(query, max_output_rows=AN_MAX_ROWS)["output"])
+        secs = []
+        for _ in range(turns):
+            t1 = time.perf_counter()
+            out = eng.execute_query(query, max_output_rows=AN_MAX_ROWS)
+            secs.append(time.perf_counter() - t1)
+            check(out["output"])
+        return secs
+
+    recs = {}
+    for presize in (True, False):
+        with override_flag("bounds_presize", presize):
+            secs = timed(AN_AGG, check_agg)
+            st, rep = eng.last_stats, eng.last_resource_report
+            rec = {"phase": "analysis_presize", "bounds_presize": presize,
+                   "max_groups": _compiled_max_groups(eng, AN_AGG),
+                   "agg_groups_bound": list(rep.agg_groups.values()),
+                   "rebuckets": st.rebuckets, "windows_folded": st.windows,
+                   "resident_windows": st.resident_windows,
+                   "rows_folded": st.rows, "secs": secs,
+                   "median_secs": float(np.median(secs)), "checked": True}
+        print(json.dumps(rec))
+        recs[presize] = rec
+    on, off = recs[True], recs[False]
+    # 20,000 keys x 1.25 -> 32768 groups at once; the ladder climbs
+    # 4096 -> 8192 -> 16384 -> 32768 without the sketches' bound.
+    assert on["rebuckets"] == 0 and off["rebuckets"] > 0, (on, off)
+    assert on["max_groups"][0] > off["max_groups"][0] == 4096, (on, off)
+
+    secs = timed(AN_JOIN, check_join)
+    st, rep, jd = eng.last_stats, eng.last_resource_report, eng.last_join_decision
+    rec = {"phase": "analysis_join_capacity",
+           "planned_join_capacity": {str(k): v
+                                     for k, v in rep.join_capacity.items()},
+           "decision": dataclasses.asdict(jd) if jd is not None else None,
+           "join_retries": st.join_retries, "rebuckets": st.rebuckets,
+           "windows_folded": st.windows, "secs": secs,
+           "median_secs": float(np.median(secs)), "checked": True}
+    print(json.dumps(rec))
+    recs["join"] = rec
+    assert rep.join_capacity, rep
+    return recs
+
+
+def check_verifier_on_card(eng) -> dict:
+    """Each AN_BAD script raises its error from ``execute_query`` before
+    anything runs: ``last_stats`` is not replaced (no plan executed), no
+    window is staged (every table's device cache keeps its windows) and
+    the card's allocation does not move."""
+    import torch
+
+    from pixie_tpu_torch.planner import PxLError
+
+    cuda = eng.device.type == "cuda"
+    out = {}
+    for name, (q, error) in AN_BAD.items():
+        before = eng.last_stats
+        cached = {n: list(t._device_cache.keys())
+                  for n, t in eng.tables.items()}
+        if cuda:
+            torch.cuda.synchronize()
+            mem = torch.cuda.memory_allocated()
+        try:
+            eng.execute_query(q)
+        except PxLError as e:
+            assert type(e).__name__ == error, (name, type(e).__name__, e)
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[-1].strip()}"
+        else:
+            raise AssertionError(f"{name}: the bad script ran")
+        assert eng.last_stats is before, name
+        assert {n: list(t._device_cache.keys())
+                for n, t in eng.tables.items()} == cached, name
+        if cuda:
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() <= mem, name
+    return out
+
+
+def compile_costs(eng, pxl: str) -> dict:
+    """``compile_pxl`` on the engine's schemas, registry and sketch
+    snapshot, as ``Engine.execute_query`` calls it: cold (both analysis
+    memos cleared) and the median of three warm compiles, in ms, each
+    with the snapshot taken (``stats_ms`` alone); and one uncached run
+    each of the verifier's walk and the bounds walk over the compiled
+    plan."""
+    from pixie_tpu_torch.analysis import bounds, verifier
+    from pixie_tpu_torch.planner import CompilerState, compile_pxl
+
+    def compile_once():
+        return compile_pxl(pxl, CompilerState(
+            schemas={n: t.relation for n, t in eng.tables.items()},
+            registry=eng.registry, now_ns=0, max_output_rows=10_000,
+            table_stats=eng._compile_table_stats()))
+
+    verifier._VERIFY_CACHE.clear()
+    bounds._BOUNDS_CACHE.clear()
+    verifier._UDA_PROTOCOL_CACHE.clear()
+    t0 = time.perf_counter()
+    compiled = compile_once()
+    cold = time.perf_counter() - t0
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        compile_once()
+        warm.append(time.perf_counter() - t0)
+    schemas = {n: t.relation for n, t in eng.tables.items()}
+    t0 = time.perf_counter()
+    stats = eng._compile_table_stats()
+    snapshot = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diags = verifier.verify_plan(compiled.plan, schemas, eng.registry)
+    verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bounds.plan_bounds(compiled.plan, schemas, eng.registry, stats)
+    walk = time.perf_counter() - t0
+    errors = [d.render() for d in diags
+              if d.severity == verifier.Severity.ERROR]
+    assert not errors, errors
+    return {"compile_cold_ms": cold * 1e3,
+            "compile_warm_ms": float(np.median(warm)) * 1e3,
+            "stats_ms": snapshot * 1e3, "verify_ms": verify * 1e3,
+            "bounds_ms": walk * 1e3, "verify_warnings": len(diags)}
+
+
+def observed_groups(eng, plan, nids) -> dict:
+    """The groups each AggOp ``nid`` of ``plan`` really makes: the plan
+    cut after the node, with a result sink on it, run on the engine."""
+    from pixie_tpu_torch.exec.plan import Plan, ResultSinkOp
+
+    out = {}
+    for nid in nids:
+        keep, stack = set(), [nid]
+        while stack:
+            i = stack.pop()
+            if i not in keep:
+                keep.add(i)
+                stack.extend(plan.nodes[i].inputs)
+        sub = Plan()
+        sub.nodes = {i: plan.nodes[i] for i in sorted(keep)}
+        sink = max(plan.nodes) + 1
+        sub.nodes[sink] = type(plan.nodes[nid])(
+            id=sink, op=ResultSinkOp(name="groups"), inputs=[nid])
+        out[nid] = eng.execute_plan(sub)["groups"].length
+    return out
+
+
+def bounds_against_observation(eng, pxl: str, peak_bytes: int) -> dict:
+    """For the last query the engine ran (``pxl``, its report bounded):
+    the rows it folded against ``rows_in_hi`` x ``bounds_safety``, each
+    aggregate's groups against its ``agg_groups`` bound x
+    ``bounds_safety`` (the NDV bound is an HLL estimate, ~3% either
+    way, so the raw ratio is printed too), and the card's allocation
+    peak during the query against ``peak_node_bytes_hi`` (printed, not
+    held)."""
+    from pixie_tpu_torch.config import get_flag
+    from pixie_tpu_torch.planner import CompilerState, compile_pxl
+
+    rep, st = eng.last_resource_report, eng.last_stats
+    safety = float(get_flag("bounds_safety"))
+    rec = {"rows": st.rows, "rows_in_hi": rep.rows_in_hi,
+           "peak_bytes": peak_bytes,
+           "peak_node_bytes_hi": rep.peak_node_bytes_hi,
+           "peak_ratio": (peak_bytes / rep.peak_node_bytes_hi
+                          if rep.peak_node_bytes_hi and peak_bytes is not None
+                          else None)}
+    if rep.rows_in_hi is not None:
+        rec["rows_ratio"] = st.rows / rep.rows_in_hi
+        assert st.rows <= rep.rows_in_hi * safety, rec
+    if rep.agg_groups:
+        plan = compile_pxl(pxl, CompilerState(
+            schemas={n: t.relation for n, t in eng.tables.items()},
+            registry=eng.registry, now_ns=0, max_output_rows=10_000,
+            table_stats=eng._compile_table_stats())).plan
+        assert plan.resource_report.agg_groups == rep.agg_groups
+        seen = observed_groups(eng, plan, list(rep.agg_groups))
+        rec["groups"] = {str(nid): [seen[nid], bound]
+                         for nid, bound in rep.agg_groups.items()}
+        rec["groups_ratio_max"] = max(
+            seen[nid] / bound for nid, bound in rep.agg_groups.items())
+        for nid, bound in rep.agg_groups.items():
+            assert seen[nid] <= bound * safety, (nid, seen[nid], bound)
+    return rec
+
+
 # -- the shipped library ----------------------------------------------------------
 LIB_HTTP_ROWS = 1 << 22  # http_events' 512 MiB budget would hold 7.9M rows
 LIB_TELEMETRY_ROWS = 4096
@@ -2219,8 +2534,12 @@ def phase_library(device, n_of=_lib_rows, turns: int = 3) -> dict:
     warm-up and ``turns`` timed turns, each checked against the CPU
     answer, with the kernels' launch counters set to 0 before the timed
     turns and read after them, and one more turn under torch.profiler
-    (the card's idle share). Returns {kernel: {script: launches per
-    query}}."""
+    (the card's idle share). The plan analysis on the card's engine:
+    the verifier refuses the AN_BAD scripts before anything runs, each
+    script verifies clean and its compile is timed (``compile_costs``),
+    and the warm-up's folded rows, groups and allocation peak are held
+    against its report (``bounds_against_observation``). Returns
+    {kernel: {script: launches per query}}."""
     import torch
 
     from pixie_tpu_torch import Engine
@@ -2238,10 +2557,14 @@ def phase_library(device, n_of=_lib_rows, turns: int = 3) -> dict:
                                             for t in eng.tables.values())}))
     names = [n for n in list_scripts() if n not in LIB_SKIP]
     assert len(names) == 80, len(names)
+    print(json.dumps({"phase": "analysis_verifier",
+                      "refused": check_verifier_on_card(eng)}))
     launches = {"dense_fold": {}, "hist_fold": {}}
     totals = {"cpu_secs": 0.0, "card_secs": 0.0}
+    analysis = []
     for name in names:
         pxl = load_script(name).pxl
+        costs = compile_costs(eng, pxl)
         compiled = compile_pxl(pxl, CompilerState(
             schemas={n: t.relation for n, t in eng.tables.items()},
             registry=eng.registry, now_ns=0, max_output_rows=10_000))
@@ -2258,7 +2581,13 @@ def phase_library(device, n_of=_lib_rows, turns: int = 3) -> dict:
                                      ordered)
             return out
 
+        if device.type == "cuda":
+            mem0 = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
         run_checked_lib()
+        peak = (torch.cuda.max_memory_allocated(device) - mem0
+                if device.type == "cuda" else None)
+        observed = bounds_against_observation(eng, pxl, peak)
         secs = []
         dense_fold.launches = hist_fold.launches = 0
         for _ in range(turns):
@@ -2277,20 +2606,44 @@ def phase_library(device, n_of=_lib_rows, turns: int = 3) -> dict:
         totals["cpu_secs"] += cpu_secs
         totals["card_secs"] += med
         jd = eng.last_join_decision
+        analysis.append({**costs, **observed, "median_secs": med})
         print(json.dumps({
             "phase": "library", "script": name, "median_secs": med,
             "secs": secs, "rows_out": {k: v.length for k, v in out.items()},
             "launches": counts, "cpu_engine_secs": cpu_secs,
             "join_strategy": jd.strategy if jd is not None else None,
             "idle_share": busy["idle_share"],
-            "device_busy_s": busy["device_busy_s"], "checked": True}))
+            "device_busy_s": busy["device_busy_s"], "checked": True,
+            "analysis": {**costs, **observed}}))
     print(json.dumps({"phase": "library_total", "scripts": len(names),
                       "checked": len(names), **totals,
                       "secs": time.perf_counter() - t0,
                       "scripts_with_dense_fold": len(launches["dense_fold"]),
                       "scripts_with_hist_fold": len(launches["hist_fold"])}))
     assert launches["dense_fold"] and launches["hist_fold"], launches
+    print(json.dumps({"phase": "analysis_library",
+                      **analysis_summary(analysis)}))
     return launches
+
+
+def analysis_summary(recs) -> dict:
+    """The library's compile costs (median and max, ms, and as a share
+    of each script's median query seconds) and its bound ratios."""
+    out = {"scripts": len(recs)}
+    for k in ("compile_cold_ms", "compile_warm_ms", "stats_ms",
+              "verify_ms", "bounds_ms"):
+        v = np.array([r[k] for r in recs])
+        share = v / 1e3 / np.array([r["median_secs"] for r in recs])
+        out[k] = {"median": float(np.median(v)), "max": float(v.max()),
+                  "share_median": float(np.median(share)),
+                  "share_max": float(share.max())}
+    for k in ("rows_ratio", "groups_ratio_max", "peak_ratio"):
+        v = [r[k] for r in recs if r.get(k) is not None]
+        out[k] = ({"n": len(v), "median": float(np.median(v)),
+                   "max": float(max(v))} if v else {"n": 0})
+    out["peak_ratio_over_1"] = sum(
+        1 for r in recs if (r.get("peak_ratio") or 0) > 1)
+    return out
 
 
 # -- the k8s metadata context ------------------------------------------------------
@@ -2508,6 +2861,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_joins(device)
     elapsed("joins")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_analysis(device)
+    elapsed("analysis")
     gc.collect()
     torch.cuda.empty_cache()
     library = phase_library(device)

@@ -12,6 +12,7 @@ plain version: the device decides that.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
@@ -54,6 +55,12 @@ def get_flag(name: str) -> int | bool | str:
             return _OVERRIDES[name]
     env = os.environ.get("PIXIE_TPU_" + name.upper())
     return _parse(name, env) if env is not None else default
+
+
+def get_flags(*names) -> tuple:
+    """``get_flag`` of each name, as a tuple (the analysis passes' memo
+    keys read several flags per compile)."""
+    return tuple(get_flag(n) for n in names)
 
 
 def set_flag(name: str, value) -> None:
@@ -142,3 +149,60 @@ define_flag("table_store_data_limit_mb", 1024 + 256,
 define_flag("table_store_http_events_percent", 40,
             "Percent of the table-store budget devoted to http_events "
             "(reference PL_TABLE_STORE_HTTP_EVENTS_PERCENT).")
+
+
+@contextlib.contextmanager
+def override_flag(name: str, value):
+    """Scoped ``set_flag`` that restores any earlier override on exit."""
+    with _LOCK:
+        had = name in _OVERRIDES
+        prev = _OVERRIDES.get(name)
+    set_flag(name, value)
+    try:
+        yield
+    finally:
+        if had:
+            set_flag(name, prev)
+        else:
+            clear_flag(name)
+
+
+# -- resource bounds (analysis/bounds.py) ------------------------------------
+define_flag(
+    "bounds_safety", 2.0,
+    "Multiplier on pxbound's predicted resource totals (staged bytes, "
+    "rows). Covers run-time effects the plan-time walk cannot see "
+    "exactly: overflow-rebucket re-folds, concurrent ingest between "
+    "compile and execution, join driver re-staging. The soundness gate "
+    "(analysis/bound_check.py) asserts observed <= predicted UNDER "
+    "this factor.",
+)
+define_flag(
+    "bounds_presize", True,
+    "Grow AggOp.max_groups at compile time to the sketch-NDV group "
+    "bound (pxbound) so first-run aggregates start at the predicted "
+    "capacity instead of climbing the overflow-doubling ladder (one "
+    "whole-table re-fold per rung). Growth only — results identical.",
+)
+define_flag(
+    "bounds_query_budget_mb", 0.0,
+    "Per-query budget on pxbound's predicted staged bytes; a plan "
+    "predicted over budget fails AT COMPILE with a structured "
+    "resource-bound Diagnostic instead of OOMing mid-query. 0 "
+    "disables. Sketch-less (unbounded) predictions are never rejected.",
+)
+define_flag(
+    "bounds_device_budget_mb", 0.0,
+    "Per-node budget on pxbound's predicted device allocation (staged "
+    "window planes, aggregate group state, join build+output buffers); "
+    "enforced at compile like bounds_query_budget_mb. 0 disables.",
+)
+define_flag(
+    "pushdown_union_agg", True,
+    "Distributed planner: place PEM-safe UnionOps (all inputs "
+    "PEM-resident and non-blocking, sole consumer chain ending at a "
+    "full AggOp) on the data agents so the downstream aggregate splits "
+    "into partial-on-PEM + AGG_STATE_MERGE, shipping sketch-sized "
+    "merge state (HLL registers, t-digest centroids) instead of "
+    "pre-agg rows over the union's ROW_GATHER bridges.",
+)

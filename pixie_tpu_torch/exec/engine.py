@@ -25,6 +25,13 @@ inputs and routes by shape, device and sketches. A stream that feeds
 more than one consumer is materialized once and shared, unless it is a
 pure table scan (each consumer re-reads the resident windows).
 
+Every compile runs the plan verifier and the resource-bound pass
+(``analysis/``) over a snapshot of the tables' ingest sketches
+(``_compile_table_stats``): a bad script fails at compile, before any
+window is staged; aggregates over sketched keys start at their
+predicted group capacity; and a join whose build side the run-time
+sketches cannot see takes its output capacity from the plan's report.
+
 A UDTF source (``px.GetTables()`` and the other introspection
 functions) runs on the host and enters the plan as a materialized
 batch. ``set_metadata_state`` binds the metadata functions
@@ -203,6 +210,10 @@ class Engine:
         # swap, capacity, retries, skipped windows), None after a query
         # without a join.
         self.last_join_decision: Optional[JoinDecision] = None
+        # The last query's plan-time resource envelope
+        # (analysis.bounds.PlanResourceReport, attached by compile_pxl),
+        # None for a plan compiled without it.
+        self.last_resource_report = None
         # Learned join output capacities per (mode, plan, node), LRU
         # (joins.learned_capacity / remember_capacity).
         self._join_capacity_cache: dict = {}
@@ -268,9 +279,39 @@ class Engine:
             registry=self.registry,
             now_ns=now_ns,
             max_output_rows=max_output_rows,
+            table_stats=self._compile_table_stats(),
         )
         compiled = compile_pxl(query, state)
         return self.execute_plan(compiled.plan, analyze=analyze, cancel=cancel)
+
+    def _compile_table_stats(self) -> dict:
+        """Ingest-sketch stats snapshot for the compiler
+        (``CompilerState.table_stats``): per table, the row count, the
+        HLL NDV estimate and the global zone map of each sketched
+        column, from sketches kept at append time (each call estimates
+        every column's NDV afresh, as the JAX engine does). The JAX
+        engine's storage-tier entry and its observed-cardinality
+        feedback are not in the port yet."""
+        out: dict = {}
+        # Snapshots (list(...)): appends on other threads add tables
+        # and sketched columns while a query compiles.
+        for n, t in list(self.tables.items()):
+            sk = getattr(t, "sketches", None)
+            if not sk:
+                continue
+            cols = list(sk.cols.items())
+            out[n] = {
+                "rows": sk.rows,
+                "ndv": {c: s.ndv for c, s in cols if s.rows},
+                # Global zone maps per sketched column: the bounds
+                # pass's join overlap term reads them.
+                "zones": {
+                    c: (s.lo, s.hi)
+                    for c, s in cols
+                    if s.rows and s.lo is not None
+                },
+            }
+        return out
 
     def execute_plan(self, plan, analyze: bool = False, cancel=None) -> dict:
         stats = QueryStats(sync=analyze)
@@ -281,6 +322,7 @@ class Engine:
         finally:
             stats.wall_s = time.perf_counter() - t0
             self.last_stats = stats
+            self.last_resource_report = getattr(plan, "resource_report", None)
 
     @staticmethod
     def _plan_fingerprint(plan) -> int:
@@ -311,6 +353,9 @@ class Engine:
                 r = results[nid] = self._run_fragment(r, stats, cancel)
             return r
 
+        # The bounds pass's envelope (analysis/bounds.py), attached by
+        # compile_pxl: the joins read their planned output capacity.
+        report = getattr(plan, "resource_report", None)
         for nid in plan.topo_order():
             node = plan.nodes[nid]
             op = node.op
@@ -362,12 +407,19 @@ class Engine:
                     )
                     left = mat_input(node.inputs[0])
                     right = mat_input(node.inputs[1])
-                    # No plan-time join capacity yet (the bounds pass is
-                    # not ported): the sketches or the default size it.
+                    # Join-buffer pre-sizing (pxbound): the plan-time
+                    # capacity covers build sides the run-time sketches
+                    # cannot see (post-aggregate ones), as the rung
+                    # before the default.
+                    planned = (
+                        report.join_capacity.get(nid)
+                        if report is not None else None
+                    )
                     results[nid] = _join_dispatch(
                         left, right, op, self,
                         left_stats=lstats, right_stats=rstats,
                         cap_key=(self._plan_fingerprint(plan), nid),
+                        planned_capacity=planned,
                         qstats=stats, cancel=cancel,
                     )
             elif isinstance(op, UnionOp):

@@ -3,8 +3,9 @@
 Reference parity: ``src/carnot/planner/compiler/compiler.h:39``
 (Compiler::CompileToIR: parse -> ASTVisitor -> IR -> Analyze -> Optimize)
 plus the LogicalPlanner facade (``planner/logical_planner.h:40``).
-A copy of the JAX package's compiler without its pxtrace mutation pass
-and its verifier and bounds passes.
+A copy of the JAX package's compiler without its pxtrace mutation pass:
+every compile runs the plan verifier and the resource-bound pass
+(``analysis/``) after the rewrite rules.
 """
 
 from __future__ import annotations
@@ -100,9 +101,34 @@ def compile_pxl(query: str, state: CompilerState) -> CompiledScript:
         )
     run_rules(builder.plan, state.max_output_rows,
               table_stats=state.table_stats)
-    # The JAX package runs its static plan verifier and resource-bound
-    # pass here (``analysis.verifier``, ``analysis.bounds``); this port
-    # has neither yet.
+    # Always-on static verification (analysis/verifier.py): schema
+    # propagation + column/dtype binding + topology invariants over the
+    # rewritten plan, so a bad plan fails HERE with node provenance
+    # instead of inside a fragment on the device. Raises PlanCheckError
+    # (a PxLError) on any error-severity finding; clean verifications
+    # memoize on (script, schemas, registry) — repeat compiles of one
+    # script re-verify for free.
+    from ..analysis.verifier import check_script_plan
+
+    check_script_plan(
+        builder.plan, query, builder.schemas, state.registry,
+        plan_params=(state.max_output_rows, state.max_groups),
+    )
+    # Resource-bound pass (analysis/bounds.py, pxbound): per-node
+    # row/byte/group bounds seeded from the ingest sketches in
+    # state.table_stats. Enforces the (default-off) compile-time
+    # budgets, pre-sizes aggregate group capacity to the NDV bound, and
+    # attaches the PlanResourceReport to the plan, from which the engine
+    # sizes join buffers. Raises PlanCheckError when a budget flag is on
+    # and the prediction exceeds it; sketch-less plans are never
+    # rejected.
+    from ..analysis.bounds import apply_plan_bounds
+
+    apply_plan_bounds(
+        builder.plan, builder.schemas, state.registry, state.table_stats,
+        script=query,
+        plan_params=(state.max_output_rows, state.max_groups),
+    )
     return CompiledScript(
         plan=builder.plan, outputs=list(builder.sinks), funcs=visitor.funcs,
         n_exports=builder.n_exports,

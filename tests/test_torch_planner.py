@@ -1,9 +1,13 @@
 """The port's PxL frontend against the JAX package's: the same scripts
-compile to the same plan (op classes, fields and edges)."""
+compile to the same plan (op classes, fields and edges), without table
+stats and with a seeded sketch snapshot, which the bounds pass reads:
+the presized ``AggOp.max_groups`` is one of the compared fields, and
+the attached ``PlanResourceReport`` is compared too."""
 
 import dataclasses
 import enum
 
+import numpy as np
 import pytest
 
 from pixie_tpu.ingest import schemas as jax_schemas
@@ -76,25 +80,86 @@ def _plan_shape(plan):
     ]
 
 
+def _report_shape(r):
+    """Package-neutral form of a PlanResourceReport."""
+    return {
+        "rows_in_hi": r.rows_in_hi, "rows_out_hi": r.rows_out_hi,
+        "bytes_staged_hi": r.bytes_staged_hi,
+        "peak_node_bytes_hi": r.peak_node_bytes_hi,
+        "wire_bytes_hi": r.wire_bytes_hi,
+        "cold_decode_bytes_hi": r.cold_decode_bytes_hi,
+        "agg_groups": dict(r.agg_groups),
+        "join_capacity": dict(r.join_capacity),
+        "diagnostics": [d.code for d in r.diagnostics],
+        "origin": r.origin, "safety": r.safety, "cost": r.cost(),
+        "nodes": {nid: (b.rows.lo, b.rows.hi, b.row_bytes, b.groups,
+                        b.join_capacity, b.origin)
+                  for nid, b in r.nodes.items()},
+    }
+
+
+def seeded_table_stats(tables, seed=3, rows=1 << 22):
+    """A sketch snapshot of ``tables`` as ``Engine._compile_table_stats``
+    builds one: every INT64 and STRING column but ``time_`` sketched, with
+    NDVs drawn from a seeded generator (up to 50,000, so some group-bys
+    presize past the default 4096 groups) and integer zone maps."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, rel in sorted(tables.items()):
+        cols = [c for c, t in rel.items()
+                if t.name in ("INT64", "STRING") and c != "time_"]
+        ndv = {c: int(rng.integers(2, 50_000)) for c in cols}
+        out[name] = {
+            "rows": rows, "ndv": ndv,
+            "zones": {c: (0, 10 * ndv[c]) for c in cols
+                      if rel.col_type(c).name == "INT64"},
+        }
+    return out
+
+
+def _compile_both(q, tables):
+    """The script compiled by both packages, without table stats and with
+    ``seeded_table_stats``: [(port, jax), (port, jax)]."""
+    port_tables = {
+        name: Relation([(n, DataType[t.name]) for n, t in rel.items()])
+        for name, rel in tables.items()
+    }
+    out = []
+    for stats in ({}, seeded_table_stats(tables)):
+        jax_state = JaxCompilerState(
+            schemas=tables, registry=jax_registry(), now_ns=1,
+            table_stats=dict(stats),
+        )
+        state = CompilerState(
+            schemas=port_tables, registry=default_registry(), now_ns=1,
+            table_stats=dict(stats),
+        )
+        out.append((compile_pxl(q, state), jax_compile_pxl(q, jax_state)))
+    return out
+
+
+def _assert_same_compile(q, tables):
+    presized = False
+    for got, ref in _compile_both(q, tables):
+        assert _plan_shape(got.plan) == _plan_shape(ref.plan)
+        assert got.outputs == ref.outputs == ["output"]
+        assert _report_shape(got.plan.resource_report) == _report_shape(
+            ref.plan.resource_report)
+        presized |= any(
+            n.op.max_groups > 4096 for n in got.plan.nodes.values()
+            if type(n.op).__name__ == "AggOp")
+    return presized
+
+
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
 def test_compile_pxl_matches_jax(script):
-    q = SCRIPTS[script]()
     tables = {"http_events": JaxRelation(
         [(n, JaxDataType[t]) for n, t in HTTP_EVENTS]), **UPID_TABLES}
-    jax_state = JaxCompilerState(
-        schemas=tables, registry=jax_registry(), now_ns=1,
-    )
-    state = CompilerState(
-        schemas={
-            name: Relation([(n, DataType[t.name]) for n, t in rel.items()])
-            for name, rel in tables.items()
-        },
-        registry=default_registry(), now_ns=1,
-    )
-    ref = jax_compile_pxl(q, jax_state)
-    got = compile_pxl(q, state)
-    assert _plan_shape(got.plan) == _plan_shape(ref.plan)
-    assert got.outputs == ref.outputs == ["output"]
+    presized = _assert_same_compile(SCRIPTS[script](), tables)
+    # Group-bys over sketched columns presize; upid (UINT128) keys are
+    # not sketched and keep the default, and so does px/pods' second
+    # group-by (over the first one's output).
+    assert presized == (script not in UPID_SCRIPTS)
 
 
 # The scripts with joins, and the tables they read (http_events with the
@@ -109,25 +174,9 @@ JOIN_TABLES = {
 }
 
 
-def _compile_both(q, tables):
-    jax_state = JaxCompilerState(
-        schemas=tables, registry=jax_registry(), now_ns=1,
-    )
-    state = CompilerState(
-        schemas={
-            name: Relation([(n, DataType[t.name]) for n, t in rel.items()])
-            for name, rel in tables.items()
-        },
-        registry=default_registry(), now_ns=1,
-    )
-    return compile_pxl(q, state), jax_compile_pxl(q, jax_state)
-
-
 @pytest.mark.parametrize("script", JOIN_SCRIPTS)
 def test_join_scripts_compile_like_jax(script):
-    got, ref = _compile_both(load_script(script).pxl, JOIN_TABLES)
-    assert _plan_shape(got.plan) == _plan_shape(ref.plan)
-    assert got.outputs == ref.outputs == ["output"]
+    _assert_same_compile(load_script(script).pxl, JOIN_TABLES)
 
 
 @pytest.mark.parametrize(
