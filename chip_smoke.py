@@ -82,7 +82,22 @@ without them. In order it:
    refused before anything reaches the card, every script verified
    clean with its compile timed cold and warm, and each query's folded
    rows, groups and allocation peak held against its report;
-10. prints one ``{"kernels": [...]}`` line and, last, the device line.
+10. the serving phase (after the window path; ingest sketches off),
+   each answer held to a fresh untiered engine with no cache over the
+   same rows (keys, counts and integers exact, FLOAT64 rtol 1e-5,
+   t-digest quantiles rtol 0.05): ``ring`` (the replay appended on the
+   native ring and on the numpy ring); ``tier`` (the replay under a
+   256 MiB hot budget and a 512 MiB cold tier: half the rows demoted,
+   none expired; px/http_stats and px/service_stats resident and with
+   residency off, when cold windows decode on the prefetch thread);
+   ``result_cache`` (a miss, then a hit with no kernel launch, then one
+   more window: http_stats_float64 stale, px/service_stats against its
+   manifest's 5000 ms budget); ``views`` (the third run after one more
+   window folds that window alone) and ``streaming`` (px/service_stats
+   and a filtered row chain, eight rounds of one window and a poll, each
+   poll folding exactly the new window); at the end every table of the
+   run is checked to be on the native ring but the ring check's one;
+11. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -2775,6 +2790,425 @@ def phase_metadata(eng, ps: dict) -> None:
                       "secs": time.perf_counter() - t_phase}))
 
 
+# -- repeat serving and the storage tiers -------------------------------------------
+SV_ROUNDS = 8
+SV_COLD_MB = 512
+SV_SCRIPTS = ("px/service_stats", "http_stats_float64")
+SV_TIER_SCRIPTS = ("px/http_stats", "px/service_stats")
+# A selective row chain (latency below 0.1 ms: about 0.1% of the rows).
+SV_ROWS_Q = """import px
+df = px.DataFrame(table='http_events')
+df = df[df.latency_ns < 100000]
+px.display(df['time_', 'service', 'latency_ns'])
+"""
+SV_ROWS_CAP = 1 << 22  # max_output_rows of the row chain's one-shot
+SV_KERNEL_SYMBOLS = ("dense_fold_kernel", "fold_ranges", "fold_global")
+
+
+class RingCensus:
+    """The ring every table of the run is created on: wraps
+    ``Table._init_backend`` and counts the backend classes, so the run
+    can assert that no table but the ring check's own fell to the numpy
+    ring."""
+
+    def __init__(self):
+        from pixie_tpu_torch.table_store import table as table_mod
+
+        self.counts: dict = {}
+        self.numpy_expected = 0
+        real = table_mod.Table._init_backend
+
+        def init_backend(t):
+            real(t)
+            name = type(t._backend).__name__
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+        table_mod.Table._init_backend = init_backend
+
+    def check(self) -> dict:
+        got = {"native_tables": self.counts.get("_NativeBackend", 0),
+               "numpy_tables": self.counts.get("_PyBackend", 0),
+               "numpy_expected": self.numpy_expected}
+        assert set(self.counts) <= {"_NativeBackend", "_PyBackend"}, self.counts
+        assert got["numpy_tables"] == self.numpy_expected, got
+        assert got["native_tables"] > 0, got
+        return got
+
+
+def _launch_counts() -> dict:
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    return {"dense_fold": dense_fold.launches, "hist_fold": hist_fold.launches}
+
+
+def _zero_launches() -> None:
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    dense_fold.launches = 0
+    hist_fold.launches = 0
+
+
+def _sv_loose(name: str) -> set:
+    return {"p50", "p99"} if name == "px/service_stats" else set()
+
+
+def sv_check(what: str, name: str, got, want) -> None:
+    """An answer of a serving path against the reference engine's
+    one-shot answer over the same rows: keys, counts and integers exact,
+    FLOAT64 rtol 1e-5, t-digest quantiles rtol 0.05 (the two CUDA
+    kernels add f32 values with atomics, and a poll that splits a
+    window adds in another order than a rescan)."""
+    check_library_output(what, got, want, _sv_loose(name),
+                         ordered=name == "rows")
+
+
+def sv_timed(eng, query: str, **kw):
+    """(output, seconds, stats) of one execute_query."""
+    t0 = time.perf_counter()
+    out = eng.execute_query(query, **kw)["output"]
+    return out, time.perf_counter() - t0, eng.last_stats
+
+
+def sv_append(engines, window: int, start: int, seed: int) -> None:
+    """One more window of the replay's recipe, appended to each engine."""
+    extra = make_replay(window, seed=seed)
+    for e in engines:
+        append_replay(e, extra, window, start=start)
+
+
+def sv_ring(replay, window: int, device, census: RingCensus):
+    """The replay appended on the native ring and on the numpy ring
+    (selected by patching ``load_native``, as the tests do), in turns
+    native, numpy, numpy, native, ingest sketches off; the last native
+    engine is the one the other checks hold their answers to."""
+    import gc
+
+    from pixie_tpu_torch import native
+    from pixie_tpu_torch.table_store import table as table_mod
+
+    native.load("table_ring")  # built already: the turns time appends only
+    secs = {"native": [], "numpy": []}
+    real = table_mod.load_native
+    for ring in ("native", "numpy", "numpy", "native"):
+        if ring == "numpy":
+            table_mod.load_native = lambda name: None
+            census.numpy_expected += 1
+        try:
+            eng = load_engine(replay, window, device)
+        finally:
+            table_mod.load_native = real
+        backend = eng.tables["http_events"]._backend
+        assert isinstance(backend, table_mod._NativeBackend if ring == "native"
+                          else table_mod._PyBackend), (ring, backend)
+        secs[ring].append(eng.append_secs)
+        if ring == "numpy":
+            numpy_eng = eng
+        else:
+            ref = eng
+        del eng
+        gc.collect()
+    want, _s, _st = sv_timed(ref, query_text("px/http_stats"))
+    got, _s, _st = sv_timed(numpy_eng, query_text("px/http_stats"))
+    sv_check("ring numpy http_stats", "px/http_stats", got, want)
+    print(json.dumps({"phase": "serving", "check": "ring",
+                      "rows": len(replay[0]), "native_append_secs": secs["native"],
+                      "numpy_append_secs": secs["numpy"], "checked": True}))
+    return ref
+
+
+def sv_tier(replay, window: int, device, ref, hot_budget: int,
+            cold_mb: int) -> dict:
+    """The replay in a tiered table (``hot_budget`` hot, ``cold_mb``
+    cold): about half the rows demote and none expires. px/http_stats and
+    px/service_stats resident (demoted windows keep their staged device
+    windows) and with residency off (cold windows decode on the prefetch
+    thread), each equal to the untiered engine's answer."""
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.config import override_flag
+
+    rows = len(replay[0])
+    with override_flag("cold_tier_mb", cold_mb):
+        eng = Engine(window_rows=window, device=device)
+        eng.create_table("http_events", max_bytes=hot_budget)
+        secs = append_replay(eng, replay, window)
+    t = eng.tables["http_events"]
+    st = t.stats()
+    assert t._tier is not None
+    assert st.rows_expired == 0 and st.evictions == 0, st
+    assert st.num_rows == rows and st.cold_rows > 0 and st.hot_rows > 0, st
+    rec = {"phase": "serving", "check": "tier", "rows": rows,
+           "hot_budget": hot_budget, "cold_tier_mb": cold_mb,
+           "append_secs": secs, "hot_rows": st.hot_rows,
+           "cold_rows": st.cold_rows, "cold_bytes": st.cold_bytes,
+           "cold_raw_bytes": st.cold_raw_bytes,
+           "compression": st.cold_raw_bytes / st.cold_bytes,
+           "demotions": st.demotions, "queries": []}
+    for name in SV_TIER_SCRIPTS:
+        q = query_text(name)
+        want, ref_secs, _st = sv_timed(ref, q)
+        for resident in (True, False):
+            with override_flag("device_residency", resident):
+                if resident:
+                    eng.execute_query(q)  # warm-up
+                got, qsecs, qst = sv_timed(eng, q)
+            sv_check(f"tier {name} resident={resident}", name, got, want)
+            if resident:
+                assert (qst.resident_windows, qst.staged_windows,
+                        qst.decode_s) == (rows // window, 0, 0.0), qst
+            else:
+                assert qst.decode_s > 0 and qst.decode_bytes > 0, qst
+            rec["queries"].append({
+                "script": name, "resident": resident, "secs": qsecs,
+                "rows_per_s": qst.rows / qsecs, "decode_s": qst.decode_s,
+                "decode_bytes": qst.decode_bytes,
+                "resident_windows": qst.resident_windows,
+                "staged_windows": qst.staged_windows,
+                "untiered_secs": ref_secs, "checked": True})
+    print(json.dumps(rec))
+    return rec
+
+
+def sv_result_cache(eng, ref, window: int, start: int, on_card: bool) -> dict:
+    """result_cache_mb = 64 on the serving engine: a first run misses, a
+    repeat hits without a kernel launch (torch.profiler sees none of
+    their symbols), and after one more window http_stats_float64 (no
+    manifest, budget 0) is stale while px/service_stats (manifest budget
+    5000 ms) is stale exactly when the rows' event time advanced past
+    it."""
+    from pixie_tpu_torch.config import override_flag
+    from pixie_tpu_torch.exec import result_cache as rc
+
+    out = {"phase": "serving", "check": "result_cache", "scripts": {}}
+    before = {}
+    for name in SV_SCRIPTS:
+        q = query_text(name)
+        want, ref_secs, _st = sv_timed(ref, q)
+        with override_flag("result_cache_mb", 64):
+            got, miss_secs, st = sv_timed(eng, q)
+            assert st.cache == rc.MISS, st.cache
+            sv_check(f"cache miss {name}", name, got, want)
+            _zero_launches()
+            hit, first_hit_secs, st = sv_timed(eng, q)
+            assert st.cache == rc.HIT, st.cache
+            hit_secs = []
+            for _turn in range(3):
+                _o, secs, st = sv_timed(eng, q)
+                assert st.cache == rc.HIT, st.cache
+                hit_secs.append(secs)
+            launches = _launch_counts()
+            symbols = []
+            if on_card:
+                import torch
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    eng.execute_query(q)
+                    torch.cuda.synchronize()
+                assert eng.last_stats.cache == rc.HIT
+                symbols = [e.key for e in prof.key_averages()
+                           if any(s in e.key for s in SV_KERNEL_SYMBOLS)]
+        assert launches == {"dense_fold": 0, "hist_fold": 0}, launches
+        assert symbols == [], symbols
+        sv_check(f"cache hit {name}", name, hit, want)
+        sha = rc.script_sha(q)[:12]
+        entry = next(e for e in eng.result_cache.cachez()["entries"]
+                     if e["script_hash"] == sha)
+        before[name] = (want, entry)
+        out["scripts"][name] = {
+            "miss_secs": miss_secs, "first_hit_secs": first_hit_secs,
+            "hit_secs": hit_secs, "hit_secs_median": float(np.median(hit_secs)),
+            "one_shot_secs": ref_secs, "hit_launches": launches,
+            "hit_kernel_symbols": symbols,
+            "staleness_budget_ms": entry["staleness_budget_ms"]}
+    old_wm = eng._table_watermark_ns("http_events")
+    sv_append([eng, ref], window, start, SEED + 30)
+    new_wm = eng._table_watermark_ns("http_events")
+    for name in SV_SCRIPTS:
+        q = query_text(name)
+        want_old, entry = before[name]
+        advance_ms = (new_wm - entry["watermarks"]["http_events"]) / 1e6
+        expect = (rc.STALE if advance_ms > entry["staleness_budget_ms"]
+                  else rc.HIT)
+        with override_flag("result_cache_mb", 64):
+            got, secs, st = sv_timed(eng, q)
+        assert st.cache == expect, (name, st.cache, expect, advance_ms)
+        if name == "http_stats_float64":
+            assert st.cache == rc.STALE, st.cache
+        want = want_old if expect == rc.HIT else sv_timed(ref, q)[0]
+        sv_check(f"cache after append {name}", name, got, want)
+        out["scripts"][name].update({
+            "after_append": st.cache, "after_append_secs": secs,
+            "event_time_advance_ms": advance_ms,
+            "stored_watermark": entry["watermarks"]["http_events"],
+            "old_watermark": old_wm, "new_watermark": new_wm})
+    with override_flag("result_cache_mb", 64):
+        out["cachez"] = {k: v for k, v in eng.result_cache.cachez().items()
+                         if k != "entries"}
+    out["checked"] = True
+    print(json.dumps(out))
+    return out
+
+
+def sv_views(eng, ref, window: int, start: int, on_card: bool) -> dict:
+    """view_auto_min_runs = 2, result_cache_mb = 0: the second run of
+    each script registers a view (one full fold), and after one more
+    window the third run folds that window only (1 dense_fold launch, or
+    2 hist_fold) and equals the untiered engine's rescan."""
+    from pixie_tpu_torch.config import override_flag
+    from pixie_tpu_torch.exec import result_cache as rc
+
+    out = {"phase": "serving", "check": "views", "scripts": {}}
+    try:
+        for name in SV_SCRIPTS:
+            q = query_text(name)
+            want, _s, _st = sv_timed(ref, q)
+            with override_flag("view_auto_min_runs", 2):
+                _got, first_secs, st = sv_timed(eng, q)
+                assert st.cache == "", st.cache
+                got, reg_secs, st = sv_timed(eng, q)
+                assert st.cache == rc.VIEW, st.cache
+            sv_check(f"view registration {name}", name, got, want)
+            out["scripts"][name] = {"first_secs": first_secs,
+                                    "register_secs": reg_secs,
+                                    "register_windows": st.windows}
+        sv_append([eng, ref], window, start, SEED + 31)
+        for name in SV_SCRIPTS:
+            q = query_text(name)
+            _zero_launches()
+            with override_flag("view_auto_min_runs", 2):
+                got, refresh_secs, st = sv_timed(eng, q)
+            launches = _launch_counts()
+            assert st.cache == rc.VIEW, st.cache
+            assert (st.windows, st.rows) == (1, window), (st.windows, st.rows)
+            if on_card:
+                want_launches = ({"dense_fold": 1, "hist_fold": 0}
+                                 if name == "http_stats_float64"
+                                 else {"dense_fold": 0, "hist_fold": 2})
+                assert launches == want_launches, (name, launches)
+            want, rescan_secs, rst = sv_timed(ref, q)
+            sv_check(f"view refresh {name}", name, got, want)
+            out["scripts"][name].update({
+                "refresh_secs": refresh_secs, "refresh_windows": st.windows,
+                "refresh_rows": st.rows, "refresh_launches": launches,
+                "rescan_secs": rescan_secs, "rescan_windows": rst.windows,
+                "checked": True})
+        out["views"] = eng.views.viewz()
+    finally:
+        eng.views.close()
+    print(json.dumps(out))
+    return out
+
+
+def sv_streaming(eng, ref, window: int, start: int, rounds: int,
+                 on_card: bool) -> dict:
+    """stream_query over the serving engine's table: px/service_stats
+    (replace) and a filtered row chain (append). Each of ``rounds``
+    rounds appends one window and polls both; each poll folds exactly
+    the new window, and the last updates equal the reference engine's
+    one-shot answers."""
+    from pixie_tpu_torch.exec.streaming import stream_query
+
+    streams = {}
+    for kind, q in (("px/service_stats", query_text("px/service_stats")),
+                    ("rows", SV_ROWS_Q)):
+        ups: list = []
+        sq = stream_query(eng, q, emit=ups.append)
+        t0 = time.perf_counter()
+        sq.poll()
+        streams[kind] = {"sq": sq, "ups": ups, "query": q,
+                         "first_poll_secs": time.perf_counter() - t0,
+                         "first_poll_windows": sq.last_stats.windows,
+                         "polls": []}
+    for r in range(rounds):
+        sv_append([eng, ref], window, start + r * window, SEED + 40 + r)
+        for kind, s in streams.items():
+            _zero_launches()
+            t0 = time.perf_counter()
+            s["sq"].poll()
+            secs = time.perf_counter() - t0
+            st = s["sq"].last_stats
+            launches = _launch_counts()
+            assert (st.windows, st.rows) == (1, window), (kind, st.windows, st.rows)
+            if on_card and kind == "px/service_stats":
+                assert launches == {"dense_fold": 0, "hist_fold": 2}, launches
+            s["polls"].append({"secs": secs, "launches": launches,
+                               "windows": st.windows, "rows": st.rows,
+                               "resident_windows": st.resident_windows,
+                               "staged_windows": st.staged_windows})
+    out = {"phase": "serving", "check": "streaming", "rounds": rounds,
+           "streams": {}}
+    for kind, s in streams.items():
+        ups = s["ups"]
+        if kind == "rows":
+            assert all(u.mode == "append" for u in ups)
+            from pixie_tpu_torch.exec.stream import _concat_host
+
+            got = _concat_host([u.batch for u in ups], ups[0].batch.relation)
+            want, _s, _st = sv_timed(ref, s["query"], max_output_rows=SV_ROWS_CAP)
+            assert want.length < SV_ROWS_CAP
+        else:
+            assert all(u.mode == "replace" for u in ups)
+            got = ups[-1].batch
+            want, _s, _st = sv_timed(ref, s["query"])
+        sv_check(f"stream {kind}", kind, got, want)
+        polls = s["polls"]
+        out["streams"][kind] = {
+            "updates": len(ups), "rows_out": got.length,
+            "first_poll_secs": s["first_poll_secs"],
+            "first_poll_windows": s["first_poll_windows"],
+            "poll_secs": [p["secs"] for p in polls],
+            "poll_secs_median": float(np.median([p["secs"] for p in polls])),
+            "launches_per_poll": [p["launches"] for p in polls],
+            "windows_per_poll": [p["windows"] for p in polls],
+            "rows_per_poll": [p["rows"] for p in polls],
+            "staged_per_poll": [p["staged_windows"] for p in polls],
+            "checked": True}
+    print(json.dumps(out))
+    return out
+
+
+def phase_serving(device, census: RingCensus, rows: int = ROWS,
+                  window: int = WINDOW, rounds: int = SV_ROUNDS,
+                  hot_budget: int | None = None,
+                  cold_mb: int = SV_COLD_MB) -> dict:
+    """Repeat serving and the storage tiers over the replay (ingest
+    sketches off): the ring, the tier, the result cache, the views and
+    the streaming cursors, in that order, every answer held to a fresh
+    untiered engine with no cache over the same rows. Returns each
+    kernel's launches in the phase's serving runs (view refreshes and
+    polls)."""
+    from pixie_tpu_torch.config import override_flag
+
+    on_card = device.type == "cuda"
+    hot_budget = rows * ROW_BYTES // 2 if hot_budget is None else hot_budget
+    t_phase = time.perf_counter()
+    with override_flag("ingest_sketches", False):
+        replay = make_replay(rows)
+        ref = sv_ring(replay, window, device, census)
+        sv_tier(replay, window, device, ref, hot_budget, cold_mb)
+        eng = load_engine(replay, window, device)
+        end = rows
+        sv_result_cache(eng, ref, window, end, on_card)
+        end += window
+        views = sv_views(eng, ref, window, end, on_card)
+        end += window
+        streaming = sv_streaming(eng, ref, window, end, rounds, on_card)
+    launches = {"dense_fold": 0, "hist_fold": 0}
+    for rec in views["scripts"].values():
+        for k, v in rec["refresh_launches"].items():
+            launches[k] += v
+    for s in streaming["streams"].values():
+        for p in s["launches_per_poll"]:
+            for k, v in p.items():
+                launches[k] += v
+    print(json.dumps({"phase": "serving", "check": "total",
+                      "secs": time.perf_counter() - t_phase,
+                      "launches": launches}))
+    return launches
+
+
 def main() -> int:
     import gc
 
@@ -2790,8 +3224,13 @@ def main() -> int:
                           "after": after}))
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pixie_tpu_torch import native
     from pixie_tpu_torch.config import clear_flag, set_flag
     from pixie_tpu_torch.ops import cuda_lib
+
+    census = RingCensus()
 
     device = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
@@ -2799,9 +3238,15 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(device)}")
 
     t0 = time.perf_counter()
-    built = cuda_lib.build()
+    # The native ring and hash join (g++) build beside the kernels (nvcc).
+    with ThreadPoolExecutor(1) as pool:
+        native_built = pool.submit(native.build)
+        built = cuda_lib.build()
+        native_secs = native_built.result()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          + ", ".join(f"{k} {v[0]:.2f} s" for k, v in built.items()))
+          + ", ".join(f"{k} {v[0]:.2f} s" for k, v in built.items())
+          + ", " + ", ".join(f"{k} (g++) {v:.2f} s"
+                             for k, v in native_secs.items()))
     for name, (_secs, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2852,6 +3297,12 @@ def main() -> int:
     del eng, table
     gc.collect()
     elapsed("window path")
+    serving = phase_serving(device, census)
+    for k in kernels:
+        k["launches_serving"] = serving[k["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    elapsed("serving")
     # hist_fold's launches in the group_by phase's quantile query, per
     # groupby_impl form (``launches`` stays the steady state's count).
     hist = next(k for k in kernels if k["name"] == "hist_fold")
@@ -2879,6 +3330,8 @@ def main() -> int:
     phase_full_budget(device)
     elapsed("eviction and full budget")
 
+    print(json.dumps({"phase": "serving", "check": "ring_census",
+                      **census.check()}))
     print(card)  # nvidia-smi's "name, power.limit" line, as it gave it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

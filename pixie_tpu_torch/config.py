@@ -206,3 +206,39 @@ define_flag(
     "merge state (HLL registers, t-digest centroids) instead of "
     "pre-agg rows over the union's ROW_GATHER bridges.",
 )
+
+
+# -- storage tier and repeat serving (table_store/tier.py,
+# exec/result_cache.py, exec/views.py) ----------------------------------------
+define_flag(
+    "cold_tier_mb", 0,
+    "Encoded cold-tier byte budget per table (table_store/coldstore.py). "
+    "> 0 enables tiering for byte-bounded tables: the oldest hot-ring "
+    "windows demote into dictionary/delta/run-length encoded cold "
+    "windows instead of expiring, and only cold evictions count as "
+    "expiry. 0 = cold tier off (the hot ring expires directly).",
+)
+define_flag(
+    "result_cache_mb", 0,
+    "Byte budget (MB) for the watermark-validated result cache of "
+    "Engine.execute_query. A repeat of a script whose scanned tables' "
+    "watermarks have not advanced past the script's staleness budget "
+    "is served from the cache with no compile and no device work. "
+    "0 disables (every query executes). Validity is watermark "
+    "comparison only, never a wall-clock TTL.",
+)
+define_flag(
+    "result_cache_staleness_ms", 0.0,
+    "Default per-script staleness budget (ms) for result-cache hits "
+    "when the script manifest carries no staleness_budget_ms field: a "
+    "cached result whose stored watermarks trail the current ones by "
+    "at most this much still serves. 0 = exact-watermark hits only.",
+)
+define_flag(
+    "view_auto_min_runs", 0,
+    "A script executed at least this many times is registered as an "
+    "incrementally maintained materialized view (exec/views.py), "
+    "answered by folding only the rows appended since its last answer. "
+    "0 disables auto-registration (a manifest's 'materialize: true' "
+    "still registers while result_cache_mb > 0).",
+)

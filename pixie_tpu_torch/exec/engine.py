@@ -37,12 +37,28 @@ functions) runs on the host and enters the plan as a materialized
 batch. ``set_metadata_state`` binds the metadata functions
 (``df.ctx[...]``) to a snapshot of k8s metadata.
 
+Repeat serving (``execute_query``): with ``result_cache_mb`` set, a
+repeat of a script whose scanned tables' event-time watermarks have not
+advanced past its staleness budget is answered from the
+watermark-validated result cache (``exec/result_cache.py``) with no
+compile and no device work; a script registered as a materialized view
+(``exec/views.py``: ``view_auto_min_runs``, or a manifest's
+``materialize``) is answered by folding only the rows appended since
+its last answer (``exec/streaming.py``). Only then does the script
+compile and execute, and a cacheable result is stored with the
+watermarks read before it ran. ``last_stats.cache`` holds the
+disposition (``hit``, ``miss``, ``stale``, ``bypass``, ``view``, or ""
+when neither tier is on) and ``last_stats.freshness_lag_ms`` the
+served answer's lag behind the clock. A tiered table's cold windows
+decode on the prefetch thread; ``last_stats.decode_s`` and
+``decode_bytes`` hold that work.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card it raises rather than carrying on on the CPU. Not ported
 here: the TPU's scan batching of resident windows (``update_all``,
-which amortises TPU dispatch cost) and the native multi-core CPU fold
-(for the XLA:CPU backend); the result cache, views and streaming are
-later slices of the port.
+which amortises TPU dispatch cost), the native multi-core CPU fold (for
+the XLA:CPU backend), the query-lifecycle tracer and the agent-mode
+state shipping of distributed plans.
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ import numpy as np
 import torch
 
 from ..config import get_flag
+from ..table_store.coldstore import take_decode_meter
 from ..types.batch import HostBatch, bucket_capacity
 from ..types.relation import Relation
 from ..udf.registry import Registry, default_registry
@@ -68,6 +85,7 @@ from .joins import (
     try_fused_join,
 )
 from .pipeline import WindowPipeline
+from .result_cache import ResultCache
 from .plan import (
     AggOp,
     ColumnRef,
@@ -119,6 +137,7 @@ def resolve_device(device=None) -> torch.device:
 _SECONDS = {
     "read": "read_s", "stage": "stage_s", "compute": "fold_s",
     "finalize": "finalize_s", "materialize": "finalize_s",
+    "decode": "decode_s",
 }
 _COUNTS = {
     "skip": "skipped_windows", "resident": "resident_windows",
@@ -150,7 +169,14 @@ class QueryStats:
       folds) and ``finalize_s`` (finalize and result assembly): with
       ``sync`` (an attribution run) each stage is fenced and the stages
       do not overlap; otherwise they are host enqueue times, and the
-      stages of two windows overlap on the prefetch thread.
+      stages of two windows overlap on the prefetch thread;
+    - ``decode_s`` / ``decode_bytes``: cold-tier windows decoded for
+      this query (on the prefetch thread when it runs), their seconds
+      and decoded bytes;
+    - ``cache``: the repeat-serving disposition (``hit``, ``miss``,
+      ``stale``, ``bypass``, ``view``; "" when the query did not go
+      through the result cache or a view); ``freshness_lag_ms``: how far
+      a served answer's newest event time trails the clock.
     """
 
     sync: bool = False
@@ -167,16 +193,20 @@ class QueryStats:
     stage_s: float = 0.0
     fold_s: float = 0.0
     finalize_s: float = 0.0
+    decode_s: float = 0.0
+    decode_bytes: int = 0
+    cache: str = ""
+    freshness_lag_ms: float = 0.0
     pipeline: dict = field(default_factory=lambda: {
         "depth": 0, "windows": 0, "stage_secs": 0.0, "stall_secs": 0.0,
     })
     fragments: list = field(default_factory=list)  # CompiledFragment per run
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
-    def add(self, stage: str, secs: float = 0.0) -> None:
-        """Charge ``secs`` to a stage, or count one event ("skip",
-        "resident", "staged"). Called from the pipeline's producer
-        thread too, hence the lock."""
+    def add(self, stage: str, secs: float = 0.0, nbytes: int = 0) -> None:
+        """Charge ``secs`` (and, for "decode", ``nbytes``) to a stage, or
+        count one event ("skip", "resident", "staged"). Called from the
+        pipeline's producer thread too, hence the lock."""
         with self._lock:
             if stage in _COUNTS:
                 name = _COUNTS[stage]
@@ -184,6 +214,21 @@ class QueryStats:
             else:
                 name = _SECONDS[stage]
                 setattr(self, name, getattr(self, name) + secs)
+                if stage == "decode":
+                    self.decode_bytes += nbytes
+
+    def note_freshness_lag(self, lag_ms: float) -> None:
+        """Keep the worst lag of the tables this query read."""
+        with self._lock:
+            self.freshness_lag_ms = max(self.freshness_lag_ms,
+                                        max(0.0, float(lag_ms)))
+
+
+def _charge_decode(stats: QueryStats) -> None:
+    """Move this thread's cold-decode meter onto the query's stats."""
+    secs, nbytes = take_decode_meter()
+    if secs or nbytes:
+        stats.add("decode", secs, nbytes=nbytes)
 
 
 class Engine:
@@ -220,6 +265,12 @@ class Engine:
         # The k8s metadata snapshot the metadata functions are bound to
         # (set_metadata_state); None until one is attached.
         self.metadata_state = None
+        # Repeat serving: the watermark-validated result cache (off while
+        # result_cache_mb is 0) and the materialized views, built at
+        # first use (views ride the streaming cursor, whose module
+        # imports this one).
+        self.result_cache = ResultCache()
+        self._views = None
 
     @property
     def tables(self) -> dict:
@@ -271,9 +322,32 @@ class Engine:
         """Compile a PxL script and execute it. Returns {output name:
         HostBatch}; ``last_stats`` holds the query's counters.
         ``analyze=True`` is an attribution run (serial, fenced per
-        stage); ``cancel`` is an Event-like handle polled per window."""
-        from ..planner import CompilerState, compile_pxl
+        stage); ``cancel`` is an Event-like handle polled per window.
 
+        Repeat serving comes first: a valid result-cache entry, then a
+        materialized view, answer without executing. Neither serves an
+        attribution run or a pxtrace script; both are off while
+        ``result_cache_mb`` and ``view_auto_min_runs`` are 0."""
+        from ..planner import CompilerState, compile_pxl
+        from . import result_cache as rc
+
+        servable = not analyze and "pxtrace" not in query
+        cache_on = servable and self.result_cache.enabled()
+        disposition = ""
+        if cache_on:
+            status, entry, lag_ms = self.result_cache.lookup(
+                query, now_ns, max_output_rows, self._table_watermark_ns
+            )
+            if status == rc.HIT:
+                self.last_join_decision = None
+                self.last_stats = QueryStats(cache=rc.HIT,
+                                             freshness_lag_ms=lag_ms)
+                return dict(entry.result)
+            disposition = status
+        if servable:
+            answer = self._try_view_answer(query, now_ns, max_output_rows)
+            if answer is not None:
+                return answer
         state = CompilerState(
             schemas={n: t.relation for n, t in self.tables.items()},
             registry=self.registry,
@@ -282,16 +356,84 @@ class Engine:
             table_stats=self._compile_table_stats(),
         )
         compiled = compile_pxl(query, state)
-        return self.execute_plan(compiled.plan, analyze=analyze, cancel=cancel)
+        # The watermarks are read BEFORE execution: rows landing during
+        # the scan make the stored watermark older than the data, so the
+        # next lookup checks again rather than trusting too much.
+        store_wms = None
+        if cache_on:
+            tables, _ = rc.scan_info(compiled.plan)
+            wms = {t: self._table_watermark_ns(t) for t in tables}
+            if tables and all(w is not None for w in wms.values()):
+                store_wms = wms
+            else:
+                disposition = rc.BYPASS
+        try:
+            result = self.execute_plan(compiled.plan, analyze=analyze,
+                                       cancel=cancel)
+        finally:
+            self.last_stats.cache = disposition
+        if store_wms is not None:
+            self.result_cache.store(
+                query, state.now_ns, max_output_rows, compiled.plan,
+                result, store_wms.get,
+            )
+        return result
+
+    def _table_watermark_ns(self, table: str):
+        """The max event-time watermark across ``table``'s tablets (None
+        for an unknown table or one without a time index): the engine's
+        half of the result cache's validity check."""
+        from ..table_store import table as _table_mod
+
+        tablets = self.table_store.tablets(table)
+        if not tablets:
+            return None
+        return _table_mod.max_watermark_ns(tablets)
+
+    @property
+    def views(self):
+        """The engine's ViewRegistry (``exec/views.py``), built at first
+        use."""
+        if self._views is None:
+            from .views import ViewRegistry
+
+            self._views = ViewRegistry(self)
+        return self._views
+
+    def _try_view_answer(self, query: str, now_ns: int,
+                         max_output_rows: int):
+        """The materialized-view answer: count the run, register a view
+        when the manifest or the run count says so, and answer from a
+        registered view by folding the rows appended since its last
+        answer. None when no view covers the query (execute it). A view
+        that fails to answer is logged and the query executes, as in the
+        JAX engine."""
+        from .views import view_candidates_enabled
+
+        if not view_candidates_enabled(query):
+            return None
+        try:
+            return self.views.serve(
+                query, now_ns=now_ns, max_output_rows=max_output_rows
+            )
+        except Exception:
+            import logging
+
+            logging.getLogger("pixie_tpu_torch.views").warning(
+                "materialized-view answer failed; executing normally",
+                exc_info=True,
+            )
+            return None
 
     def _compile_table_stats(self) -> dict:
         """Ingest-sketch stats snapshot for the compiler
         (``CompilerState.table_stats``): per table, the row count, the
         HLL NDV estimate and the global zone map of each sketched
         column, from sketches kept at append time (each call estimates
-        every column's NDV afresh, as the JAX engine does). The JAX
-        engine's storage-tier entry and its observed-cardinality
-        feedback are not in the port yet."""
+        every column's NDV afresh, as the JAX engine does), and for a
+        tiered table the observed bytes per row of each tier, which seed
+        the bounds pass's staged and cold-decode bytes. The JAX engine's
+        observed-cardinality feedback is not in the port yet."""
         out: dict = {}
         # Snapshots (list(...)): appends on other threads add tables
         # and sketched columns while a query compiles.
@@ -311,6 +453,19 @@ class Engine:
                     if s.rows and s.lo is not None
                 },
             }
+            if t._tier is not None:
+                f = t.freshness()
+                hr, cr = int(f["hot_rows"]), int(f["cold_rows"])
+                out[n]["tier"] = {
+                    "hot_rows": hr,
+                    "cold_rows": cr,
+                    "hot_row_bytes": f["hot_bytes"] / hr if hr else None,
+                    "cold_row_bytes": f["cold_bytes"] / cr if cr else None,
+                    "raw_row_bytes": (
+                        (f["hot_bytes"] + f["cold_raw_bytes"]) / (hr + cr)
+                        if hr + cr else None
+                    ),
+                }
         return out
 
     def execute_plan(self, plan, analyze: bool = False, cancel=None) -> dict:
@@ -364,6 +519,7 @@ class Engine:
                 if not tablets:
                     raise QueryError(f"no table named {op.table!r}")
                 base = next((t for t in tablets if len(t.relation)), tablets[0])
+                self._note_scan_freshness(op, tablets, stats)
                 chain = []
                 if op.columns is not None:
                     chain.append(
@@ -445,6 +601,17 @@ class Engine:
                     results[nid] = self._run_fragment(st, stats, cancel)
         return outputs
 
+    @staticmethod
+    def _note_scan_freshness(op, tablets, stats: QueryStats) -> None:
+        """One table scan's staleness: its stop time (or now, for an
+        unbounded scan) less the table's max event-time watermark."""
+        from ..table_store import table as _table_mod
+
+        wm = _table_mod.max_watermark_ns(tablets)
+        if wm is not None:
+            ref = op.stop_time if op.stop_time is not None else time.time_ns()
+            stats.note_freshness_lag((int(ref) - wm) / 1e6)
+
     def _run_udtf(self, op: UDTFSourceOp) -> HostBatch:
         """Execute a UDTF source (``udtf_source_node.h`` analog): call its
         fn with this engine as context and shape the rows to the declared
@@ -490,7 +657,13 @@ class Engine:
         materialized batch) and staged through ``to_device``, with a
         mask. ``source`` is the DeviceWindow or DeviceBatch, whose
         ``handoff`` the consumer calls before it reads the planes.
-        Zone-map pruning runs before either stages."""
+        Zone-map pruning runs before either stages. A tiered table's
+        cold windows decode inside the staging, on the thread running
+        this generator (the prefetch thread under a pipeline), whose
+        decode meter is charged to the query after each window. The
+        meter is cleared first: decodes this thread made outside the
+        query (a ``read_all``, staging at append time) are not its."""
+        take_decode_meter()
         if isinstance(stream.source, HostBatch):
             yield from self._stage_host(
                 self._host_windows(stream.source), stats, cancel
@@ -511,6 +684,7 @@ class Engine:
                         item = next(scan, None)
                         if item is not None:
                             _block_if(stats, self.device)
+                    _charge_decode(stats)
                     if item is None:
                         break
                     win, lo, hi = item
@@ -535,6 +709,7 @@ class Engine:
         while True:
             with _timed(stats, "read"):
                 hb = next(windows, None)
+            _charge_decode(stats)
             if hb is None:
                 return
             self._check_cancel(cancel)

@@ -30,9 +30,10 @@ are counts here: ``JoinDecision.retries`` and the query's
 Host syncs: each device dispatch (the single shot, each probe window)
 reads its output back in ONE copy, the overflow flag packed in with the
 indices (``_readback``), and compacts on the host. The JAX package's
-jit caches per shape become plain calls. The native host hash join
-(``native/hash_join.cc``) waits for the port's own native build; the
-numpy sort / bincount form serves the host N:M path.
+jit caches per shape become plain calls. The host N:M path
+(``host_hash``) is the native build + probe hash join
+(``native/hash_join.cc``, built with g++ at first use); the numpy sort /
+bincount form serves only sides too long for its i32 row indices.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from ..config import get_flag
+from ..native import hash_join_call
 from ..types.batch import HostBatch, bucket_capacity, handoff, stage_planes
 from ..types.dtypes import DataType, device_dtypes
 from ..types.strings import NULL_ID, StringDictionary
@@ -939,8 +941,9 @@ def _join_host(left: HostBatch, right: HostBatch, op: JoinOp) -> HostBatch:
 def _join_host_nm(left: HostBatch, right: HostBatch, op: JoinOp,
                   right_stats=None, decision=None) -> HostBatch:
     """N:M inner/left equijoin on the host — a CPU engine's bulk path:
-    the vectorized numpy sort/searchsorted form, or bincount offsets over
-    a dense key range.
+    the native hash join (``native/hash_join.cc``), or, for sides past
+    its i32 row indices, the numpy sort/searchsorted form or bincount
+    offsets over a dense key range.
 
     Zone pre-filter (the host analog of the windowed drivers' window
     skipping): rows whose key lies outside the other side's [min, max]
@@ -987,6 +990,11 @@ def _join_host_nm(left: HostBatch, right: HostBatch, op: JoinOp,
             np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
         )
 
+    if len(rkeys) and len(lkeys):
+        native = hash_join_call(rkeys, lkeys, left_outer=(op.how == "left"))
+        if native is not None:
+            l_idx, r_idx = native
+            return _emit(l_idx.astype(np.int64), r_idx.astype(np.int64))
     order = np.argsort(rkeys, kind="stable")
     span = 0
     if len(rkeys) and len(lkeys):

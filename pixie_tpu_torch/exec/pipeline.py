@@ -31,6 +31,12 @@ wait on that event (``handoff``) before it folds. The pipeline itself
 only moves Python objects between the threads and never fences the
 device.
 
+A tiered table's cold windows decode inside the staging generator, so
+under a pipeline the decode runs on the prefetch thread and overlaps
+the fold. The decode meter is thread-local (``table_store/coldstore.py``
+``take_decode_meter``): the generator takes it after each window and
+charges it to the query's ``decode_s`` / ``decode_bytes``.
+
 Counters: ``windows``, ``stage_secs`` (producer time spent staging) and
 ``stall_secs`` (consumer time blocked waiting for a window).
 """

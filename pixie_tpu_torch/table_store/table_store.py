@@ -6,7 +6,9 @@ physical Table, and reads over the table see all tablets. A port of the
 JAX package's ``table_store/table_store.py`` without numeric table ids.
 A table created with a device and a window size stages its windows at
 that size onto that device from its first append on; new tablets
-inherit both from the base tablet.
+inherit both from the base tablet. A tiered table's demoted windows keep
+their staged device windows (``Table.first_row_id`` spans both tiers),
+so repeat scans of a tiered table stay resident.
 """
 
 from __future__ import annotations
