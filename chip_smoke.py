@@ -39,7 +39,27 @@ without them. In order it:
    256 MiB device_cache_bytes budget (resident bytes and the allocator's
    growth stay inside it); and 2^27 rows, 4 GiB resident, under one
    px/http_stats query;
-6. the group_by phase: which uint64 ops the card's PyTorch has; a
+6. the cluster phase (agent mode, before the tail is appended): one
+   in-process MessageBus, an AgentTracker, 4 PEMAgents and a KelvinAgent,
+   each with its own Engine on the card, and a QueryBroker. The replay
+   is dealt to the PEMs as contiguous quarters of 2^22 rows (2 resident
+   windows each, every PEM's dictionaries in an order of its own, 512
+   MiB in all). px/http_stats, http_stats_float64 (dense_fold on every
+   PEM), px/service_stats (hist_fold on every PEM), px/http_errors (a
+   row-gather bridge) and px/agent_status (5 agents, each heard from
+   within 3 heartbeat intervals) run through
+   ``broker.execute_script``: a warm-up, three timed turns and one
+   under torch.profiler, each answer held to the steady-state engine's
+   over the same rows (keys, strings and integers exact, FLOAT64 rtol
+   1e-5, t-digest quantiles rtol 0.05), with the seconds per query and
+   their split (compile and plan, dispatch, the slowest PEM fragment,
+   the Kelvin's merge), the bridge bytes and each kernel's launches per
+   PEM (counted by the bus thread that runs the PEM's fragments). Then
+   one PEM dies and is expired: px/service_stats replans onto 3 PEMs and
+   equals numpy over their quarters; a live px/service_stats over the 3
+   (``execute_script_streaming``), one more window appended on each,
+   ends at the one-shot answer;
+7. the group_by phase: which uint64 ops the card's PyTorch has; a
    2^23-row process_stats replay (20,000 upids in 2,000 pods, UINT128
    keys, 0.9 GB resident); a filtered row chain that carries the upid
    to the host; then px/upids, px/pods, px/pid_memory_usage and rss
@@ -52,7 +72,7 @@ without them. In order it:
    ``Engine.set_metadata_state``, and ``df.ctx['service']``, ``['pod']``
    and ``['namespace']`` group-bys, each checked against numpy over the
    same mapping, timed in three turns with the card's idle share;
-7. the joins phase, each answer checked against numpy with bench.py's
+8. the joins phase, each answer checked against numpy with bench.py's
    assertions: px/http_request_stats over the resident main replay
    (after the tail phase), px/service_resource_usage over the group_by
    phase's process_stats and a small http_events table of its pods,
@@ -63,15 +83,15 @@ without them. In order it:
    forced to single and sorted; each query prints its JoinDecision,
    three timed turns after a warm-up (one when forced), the host syncs
    per probe window and the card's idle share;
-8. the library phase: ``init_schemas`` on a fresh engine with the
+9. the library phase: ``init_schemas`` on a fresh engine with the
    default budgets, every Stirling table filled to its 32 MiB budget
    (http_events cut to 2^22 rows, the telemetry tables 4096 rows) from
    a seeded generator with the vocabularies of the JAX package's script
-   harness, and each of the 80 shipped scripts but px/agent_status run
-   on the card (a warm-up, three timed turns, one under torch.profiler)
+   harness, and each of the 80 shipped scripts but px/agent_status (it
+   runs in the cluster phase) run on the card (a warm-up, three timed turns, one under torch.profiler)
    and checked against the port's CPU engine over the same rows, with
    each kernel's launches per script;
-9. the analysis phase (the plan verifier and the bounds pass that every
+10. the analysis phase (the plan verifier and the bounds pass that every
    compile runs): a 2^23-row table of 20,000 INT64 keys in [0, 2^40)
    (no dense domain) in 2^21-row resident windows with ingest sketches
    on, grouped with ``bounds_presize`` on (32768 groups at once) and off
@@ -82,7 +102,7 @@ without them. In order it:
    refused before anything reaches the card, every script verified
    clean with its compile timed cold and warm, and each query's folded
    rows, groups and allocation peak held against its report;
-10. the serving phase (after the window path; ingest sketches off),
+11. the serving phase (after the window path; ingest sketches off),
    each answer held to a fresh untiered engine with no cache over the
    same rows (keys, counts and integers exact, FLOAT64 rtol 1e-5,
    t-digest quantiles rtol 0.05): ``ring`` (the replay appended on the
@@ -97,7 +117,7 @@ without them. In order it:
    and a filtered row chain, eight rounds of one window and a poll, each
    poll folding exactly the new window); at the end every table of the
    run is checked to be on the native ring but the ring check's one;
-11. prints one ``{"kernels": [...]}`` line and, last, the device line.
+12. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -2139,8 +2159,8 @@ LIB_HTTP_ROWS = 1 << 22  # http_events' 512 MiB budget would hold 7.9M rows
 LIB_TELEMETRY_ROWS = 4096
 LIB_VOCAB = 3000  # _seed_all_tables' n: its per-row strings take this many values
 LIB_APPEND_ROWS = 1 << 20
-LIB_SKIP = {"px/agent_status": "GetAgentStatus needs the service bus "
-                               "(ROADMAP item 18)"}
+LIB_SKIP = {"px/agent_status": "GetAgentStatus asks the agent tracker: "
+                               "it runs in the cluster phase"}
 LIB_FLOAT_RTOL, LIB_QUANTILE_RTOL = 1e-5, 0.05
 LIB_QUANTILE_UDAS = ("quantiles",) + tuple(
     f"_quantile_{f}" for f in ("p01", "p10", "p25", "p50", "p75", "p90", "p99"))
@@ -2848,6 +2868,8 @@ def _zero_launches() -> None:
 
     dense_fold.launches = 0
     hist_fold.launches = 0
+    dense_fold.launches_by_thread.clear()
+    hist_fold.launches_by_thread.clear()
 
 
 def _sv_loose(name: str) -> set:
@@ -3209,6 +3231,335 @@ def phase_serving(device, census: RingCensus, rows: int = ROWS,
     return launches
 
 
+# -- the cluster phase: agent mode on one card ----------------------------------
+CL_PEMS = 4
+CL_QUARTER = ROWS // CL_PEMS  # 2^22 rows: 2 resident windows per PEM
+CL_HEARTBEAT_S = 1.0
+CL_TURNS = 3
+CL_SCRIPTS = ("px/http_stats", "http_stats_float64", "px/service_stats",
+              "px/http_errors", "px/agent_status")
+CL_KERNEL_OF = {"http_stats_float64": "dense_fold",
+                "px/service_stats": "hist_fold"}
+CL_POLL_S = 0.25
+
+
+def cl_batches(replay, i: int, lo: int, hi: int, window: int, start: int):
+    """Rows [lo, hi) of ``replay`` as PEM ``i``'s append batches: its
+    service and path dictionaries list the names in an order of its own
+    (rotated by i), so every PEM encodes the same strings to other ids
+    and the Kelvin's canonical remap has work to do. ``time_`` counts
+    from ``start``."""
+    from pixie_tpu_torch.types import DataType, HostBatch, Relation, StringDictionary
+
+    svc, path, lat, status = replay
+    svc_order = np.roll(np.arange(N_SERVICES), 7 * i)
+    path_order = np.roll(np.arange(N_PATHS), 3 * i)
+    svc_id = np.argsort(svc_order).astype(np.int32)
+    path_id = np.argsort(path_order).astype(np.int32)
+    rel = Relation([(n, getattr(DataType, t)) for n, t in RELATION])
+    dicts = {
+        "service": StringDictionary([f"svc-{k}" for k in svc_order]),
+        "req_path": StringDictionary([f"/api/v1/ep{k}" for k in path_order]),
+    }
+    for off in range(lo, hi, window):
+        s = slice(off, min(off + window, hi))
+        m = s.stop - s.start
+        t0 = start + off - lo
+        yield HostBatch(relation=rel, cols={
+            "time_": (np.arange(t0, t0 + m, dtype=np.int64),),
+            "latency_ns": (lat[s],),
+            "resp_status": (status[s],),
+            "service": (svc_id[svc[s]],),
+            "req_path": (path_id[path[s]],),
+        }, length=m, dicts=dicts)
+
+
+def cl_expect_service_stats(replay, rows: slice) -> dict:
+    """numpy's px/service_stats over ``rows``, by service name."""
+    svc, path, lat, status = replay
+    part = (svc[rows], path[rows], lat[rows], status[rows])
+    return {f"svc-{s}": v for s, v in expect_service_stats(part).items()}
+
+
+def cl_check_service_stats(out, want: dict) -> None:
+    """A cluster's px/service_stats against numpy: throughput exact,
+    error rate rtol 1e-5, p50/p99 rtol 0.05."""
+    got = out.to_pydict()
+    assert sorted(got["service"]) == sorted(want), "service_stats groups"
+    for s, p50, p99, err, thr in zip(got["service"], got["p50"], got["p99"],
+                                     got["error_rate"], got["throughput"]):
+        r50, r99, rerr, rthr = want[s]
+        assert thr == rthr, f"{s} throughput {thr} vs {rthr}"
+        np.testing.assert_allclose(err, rerr, rtol=LIB_FLOAT_RTOL)
+        np.testing.assert_allclose([p50, p99], [r50, r99],
+                                   rtol=LIB_QUANTILE_RTOL, err_msg=s)
+
+
+def cl_check_agent_status(out, agent_ids) -> None:
+    d = out.to_pydict()
+    assert sorted(d["agent_id"]) == sorted(agent_ids), d["agent_id"]
+    kinds = dict(zip(d["agent_id"], d["kind"]))
+    assert all(kinds[a] == ("kelvin" if a.startswith("kelvin") else "pem")
+               for a in agent_ids), kinds
+    ages = dict(zip(d["agent_id"], d["last_heartbeat_s"]))
+    assert all(0 <= a < 3 * CL_HEARTBEAT_S for a in ages.values()), ages
+
+
+def cl_reference(eng, name: str) -> tuple:
+    """The single engine's answer to ``name`` over the same rows, and
+    ``check_library_output``'s loose columns and row order."""
+    from pixie_tpu_torch.planner import CompilerState, compile_pxl
+
+    pxl = query_text(name)
+    compiled = compile_pxl(pxl, CompilerState(
+        schemas={n: t.relation for n, t in eng.tables.items()},
+        registry=eng.registry, now_ns=0, max_output_rows=10_000))
+    loose, ordered = _quantile_columns(compiled.plan)
+    return eng.execute_query(pxl), loose, ordered
+
+
+def cl_query(c, name: str) -> dict:
+    """One broker query and its split: compile and plan (the broker
+    trace's start to its dispatch span), the dispatch span, the slowest
+    PEM fragment, the Kelvin's merge trace and the bridge bytes."""
+    from pixie_tpu_torch.scripts import load_script
+
+    pxl = (load_script(name).pxl if name == "px/agent_status"
+           else query_text(name))
+    t0 = time.perf_counter()
+    res = c.broker.execute_script(pxl, timeout_s=120.0)
+    secs = time.perf_counter() - t0
+    tr = c.broker.tracer.last()
+    disp = next(s for s in tr.spans if s.name == "dispatch")
+    frags = {a: st["exec_time_s"] for a, st in res["agent_stats"].items()}
+    merge = c.kelvin.engine.tracer.last()
+    wire = sum(int(st["usage"]["wire_bytes"])
+               for st in res["agent_stats"].values())
+    return {
+        "res": res, "secs": secs,
+        "compile_plan_s": (disp.start_unix_nano - tr.start_unix_nano) / 1e9,
+        "dispatch_s": (disp.end_unix_nano - disp.start_unix_nano) / 1e9,
+        "slowest_fragment_s": max(frags.values()) if frags else 0.0,
+        "merge_s": merge.duration_s if merge.qid == res["qid"] else None,
+        "wire_bytes": wire,
+    }
+
+
+def cl_launches(c) -> dict:
+    """Kernel launches per PEM (by the bus thread that runs its
+    fragments) and in total since the counters were set to 0."""
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    out = {}
+    for k, fn in (("dense_fold", dense_fold), ("hist_fold", hist_fold)):
+        out[k] = {
+            "per_pem": {p.agent_id: fn.launches_by_thread.get(
+                f"bus-sub-agent.{p.agent_id}.execute", 0) for p in c.pems},
+            "total": fn.launches,
+        }
+    return out
+
+
+class Cluster:
+    """One in-process bus, an AgentTracker, CL_PEMS PEMAgents and one
+    KelvinAgent, each with its own Engine on ``device``, and a
+    QueryBroker. ``close`` stops every agent, the tracker and the
+    broker and closes the bus."""
+
+    def __init__(self, device, window: int = WINDOW,
+                 heartbeat_s: float = CL_HEARTBEAT_S, pems: int = CL_PEMS):
+        from pixie_tpu_torch import Engine
+        from pixie_tpu_torch.services import (
+            AgentTracker, KelvinAgent, MessageBus, PEMAgent, QueryBroker)
+
+        self.bus = MessageBus()
+        self.tracker = AgentTracker(self.bus, expiry_s=60.0,
+                                    check_interval_s=60.0)
+        self.agents, self.broker = [], None
+        try:
+            self.pems = []
+            for i in range(pems):
+                self.pems.append(PEMAgent(
+                    self.bus, f"pem-{i}",
+                    engine=Engine(window_rows=window, device=device),
+                    heartbeat_interval_s=heartbeat_s,
+                ))
+                self.agents.append(self.pems[-1].start())
+            self.kelvin = KelvinAgent(
+                self.bus, "kelvin-0",
+                engine=Engine(window_rows=window, device=device),
+                heartbeat_interval_s=heartbeat_s,
+            )
+            self.agents.append(self.kelvin.start())
+            self.broker = QueryBroker(self.bus, self.tracker)
+        except BaseException:
+            self.close()
+            raise
+
+    def registered(self, table: str, timeout_s: float = 10.0) -> None:
+        for p in self.pems:
+            p._register()
+        deadline = time.monotonic() + timeout_s
+        while table not in self.tracker.schemas():
+            assert time.monotonic() < deadline, "schemas never registered"
+            time.sleep(0.01)
+
+    def close(self) -> None:
+        if self.broker is not None:
+            self.broker.close()
+        for a in self.agents:
+            a.stop()
+        self.tracker.close()
+        self.bus.close()
+
+
+def phase_cluster(eng, replay, device, window: int = WINDOW,
+                  quarter: int = CL_QUARTER, turns: int = CL_TURNS,
+                  profile: bool = True) -> dict:
+    """Agent mode on one card: 4 PEMs and a Kelvin, each with its own
+    Engine, a tracker and a broker on one bus. The replay is dealt to the
+    PEMs as contiguous quarters (each in its own dictionary order); each
+    script runs through ``broker.execute_script`` (a warm-up, ``turns``
+    timed turns) and is held to the single engine ``eng``'s answer over
+    the same rows; then one PEM dies and is expired, the next
+    px/service_stats replans onto 3 PEMs (held to numpy over their
+    quarters), and a live px/service_stats over the 3 with one more
+    window appended on each ends at the one-shot answer. Returns the
+    kernels' launches per PEM and in total."""
+    c = Cluster(device, window=window)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for i, pem in enumerate(c.pems):
+            for hb in cl_batches(replay, i, i * quarter, (i + 1) * quarter,
+                                 window, i * quarter):
+                pem.append_data("http_events", hb)
+        append_s = time.perf_counter() - t0
+        c.registered("http_events")
+        resident = [p.engine.tables["http_events"].resident_bytes
+                    for p in c.pems]
+        print(json.dumps({"phase": "cluster_append", "pems": len(c.pems),
+                          "rows_per_pem": quarter, "secs": append_s,
+                          "resident_bytes": resident}))
+        if device.type == "cuda":
+            assert resident == [quarter * ROW_BYTES] * len(c.pems), resident
+        for name in CL_SCRIPTS:
+            if name == "px/agent_status":
+                ref = None
+            else:
+                ref, loose, ordered = cl_reference(eng, name)
+            cl_query(c, name)  # warm-up
+            _zero_launches()
+            recs = []
+            for _ in range(turns):
+                recs.append(cl_query(c, name))
+                res = recs[-1]["res"]
+                if ref is None:
+                    (hb,) = res["tables"].values()
+                    cl_check_agent_status(hb, [a.agent_id for a in c.agents])
+                    continue
+                assert sorted(res["tables"]) == sorted(ref), name
+                for k in ref:
+                    check_library_output(f"cluster {name}:{k}",
+                                         res["tables"][k], ref[k], loose[k],
+                                         ordered)
+                assert res["distributed_plan"].n_data_shards == len(c.pems)
+            launches = cl_launches(c)
+            kernel = CL_KERNEL_OF.get(name)
+            if kernel is not None and device.type == "cuda":
+                per = launches[kernel]["per_pem"]
+                assert all(n > 0 for n in per.values()), (name, per)
+                out.setdefault(kernel, {})[name] = {
+                    "per_pem_per_query": {a: n // turns for a, n in per.items()},
+                    "per_query": launches[kernel]["total"] // turns,
+                }
+            rec = {"phase": "cluster", "script": name, "checked": True,
+                   "turns": [r["secs"] for r in recs],
+                   "secs": float(np.median([r["secs"] for r in recs]))}
+            for k in ("compile_plan_s", "dispatch_s", "slowest_fragment_s",
+                      "merge_s", "wire_bytes"):
+                vals = [r[k] for r in recs if r[k] is not None]
+                rec[k] = float(np.median(vals)) if vals else None
+            rec["launches"] = launches
+            if profile and device.type == "cuda":
+                rec.update(busy_share(lambda: cl_query(c, name)))
+            print(json.dumps(rec))
+        live = cl_expiry_and_live(c, replay, window, quarter)
+        if device.type == "cuda":
+            assert live > 0, "the live query launched no hist_fold"
+            out["hist_fold"]["live px/service_stats"] = {"total": live}
+    finally:
+        c.close()
+    return out
+
+
+def cl_expiry_and_live(c, replay, window: int, quarter: int) -> int:
+    """The last PEM dies and is expired: px/service_stats replans onto
+    the 3 survivors and equals numpy over their quarters. Then a live
+    px/service_stats over them; one more window on each live PEM; its
+    last update equals the one-shot answer. Returns the live query's
+    hist_fold launches."""
+    dead = c.pems[-1]
+    dead.stop()
+    assert c.tracker.force_expire(dead.agent_id)
+    live = c.pems[:-1]
+    name = "px/service_stats"
+    rec = cl_query(c, name)
+    assert rec["res"]["distributed_plan"].n_data_shards == len(live)
+    assert set(rec["res"]["agent_stats"]) == {p.agent_id for p in live}
+    (hb,) = rec["res"]["tables"].values()
+    cl_check_service_stats(
+        hb, cl_expect_service_stats(replay, slice(0, len(live) * quarter)))
+    print(json.dumps({"phase": "cluster_expiry", "script": name,
+                      "expired": dead.agent_id, "pems": len(live),
+                      "secs": rec["secs"], "wire_bytes": rec["wire_bytes"],
+                      "checked": True}))
+
+    ups = []
+    _zero_launches()
+    handle = c.broker.execute_script_streaming(
+        query_text(name), ups.append, poll_interval_s=CL_POLL_S)
+    try:
+        def through(rows: int, timeout_s: float = 60.0):
+            deadline = time.monotonic() + timeout_s
+            while True:
+                errs = [u for u in ups if "error" in u]
+                assert not errs, errs[0]["error"]
+                batches = [u for u in ups if "batch" in u]
+                if batches and int(np.sum(
+                        batches[-1]["batch"].to_pydict()["throughput"])) == rows:
+                    return batches[-1]
+                assert time.monotonic() < deadline, f"no update at {rows} rows"
+                time.sleep(0.01)
+
+        t0 = time.perf_counter()
+        through(len(live) * quarter)
+        first_s = time.perf_counter() - t0
+        extra = make_replay(window * len(live), seed=SEED + 20)
+        t0 = time.perf_counter()
+        for i, pem in enumerate(live):
+            lo, hi = i * window, (i + 1) * window
+            for b in cl_batches(extra, i, lo, hi, window, ROWS + lo):
+                pem.append_data("http_events", b)
+        last = through(len(live) * (quarter + window))
+        update_s = time.perf_counter() - t0
+        launches = cl_launches(c)
+    finally:
+        handle.cancel()
+    one_shot = cl_query(c, name)
+    (want,) = one_shot["res"]["tables"].values()
+    check_library_output(f"cluster live {name}", last["batch"], want,
+                         {"p50", "p99"}, False)
+    print(json.dumps({"phase": "cluster_live", "script": name,
+                      "pems": len(live), "updates": len(ups),
+                      "first_update_s": first_s,
+                      "append_to_last_update_s": update_s,
+                      "hist_fold_launches": launches["hist_fold"]["total"],
+                      "one_shot_secs": one_shot["secs"], "checked": True}))
+    return launches["hist_fold"]["total"]
+
+
 def main() -> int:
     import gc
 
@@ -3293,10 +3644,16 @@ def main() -> int:
     phase_attribution(eng, expect)
     phase_host_staged(replay, expect, device)
     phase_row_chains(eng, replay)
+    elapsed("window path")
+    # Agent mode, held to ``eng`` before the tail grows its table.
+    cluster = phase_cluster(eng, replay, device)
+    for k in kernels:
+        k["launches_cluster"] = cluster[k["name"]]
+    gc.collect()
+    elapsed("cluster")
     phase_tail(eng, replay)
     del eng, table
     gc.collect()
-    elapsed("window path")
     serving = phase_serving(device, census)
     for k in kernels:
         k["launches_serving"] = serving[k["name"]]

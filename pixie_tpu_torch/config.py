@@ -45,6 +45,8 @@ def _parse(name: str, value) -> int | bool | str:
         return bool(value)
     if isinstance(_DEFAULTS[name], float):
         return float(value)
+    if isinstance(_DEFAULTS[name], str):
+        return str(value)
     return int(value)
 
 
@@ -241,4 +243,117 @@ define_flag(
     "answered by folding only the rows appended since its last answer. "
     "0 disables auto-registration (a manifest's 'materialize: true' "
     "still registers while result_cache_mb > 0).",
+)
+
+
+# -- agent mode (services/) ---------------------------------------------------
+define_flag(
+    "bus_secret", "",
+    "Shared secret for netbus/broker bearer tokens; empty disables auth "
+    "(single-trust-domain deployments).",
+)
+define_flag(
+    "dispatch_retries", 3,
+    "Re-publishes of an un-acked fragment dispatch before the broker "
+    "declares the agent lost (0 = a single un-acked attempt is lost).",
+)
+define_flag(
+    "dispatch_backoff_ms", 50.0,
+    "Initial ack-wait/backoff for fragment dispatch retries; doubles "
+    "per attempt (capped at 2s) with +0..25% jitter.",
+)
+define_flag(
+    "require_complete", False,
+    "Fail a distributed query as soon as a participating data agent is "
+    "lost, instead of completing with partial results from the "
+    "survivors (the pre-fault-tolerance fail-closed behavior).",
+)
+define_flag(
+    "agent_flap_threshold", 3,
+    "Expirations within agent_flap_window_s that quarantine an agent "
+    "out of distributed query planning.",
+)
+define_flag(
+    "agent_flap_window_s", 300.0,
+    "Sliding window (seconds) for counting agent expirations toward "
+    "the flap threshold.",
+)
+define_flag(
+    "agent_quarantine_s", 120.0,
+    "Cooldown during which a quarantined (flapping) agent is excluded "
+    "from distributed_state() planning; it may re-register and "
+    "heartbeat meanwhile.",
+)
+define_flag(
+    "trace_ring_size", 128,
+    "Finished query traces kept in the engine tracer's ring buffer "
+    "(oldest evicted first).",
+)
+define_flag(
+    "trace_window_sample", 64,
+    "Record one per-window stage/compute/stall interval span every N "
+    "windows per fragment (1 = every window, 0 = no window spans). "
+    "Timestamps only — never forces device sync.",
+)
+define_flag(
+    "trace_export_url", "",
+    "OTLP/HTTP base URL to push finished query traces to; empty keeps "
+    "traces in-memory only (ring buffer). The OTLP exporter is not in "
+    "this slice of the port: setting it raises.",
+)
+define_flag(
+    "slow_query_threshold_ms", 0.0,
+    "Queries slower than this (wall-clock ms) dump their full trace to "
+    "the 'pixie_tpu_torch.slow_query' logger; 0 disables the slow-query "
+    "log.",
+)
+define_flag(
+    "admission_bytes_budget_mb", 0.0,
+    "Broker admission control: budget on the SUM of in-flight queries' "
+    "predicted staged bytes (pxbound predicted_cost). A single query "
+    "predicted over the whole budget is rejected with its diagnostic; "
+    "a query that merely doesn't fit NOW queues up to "
+    "admission_queue_s. 0 disables (every query admitted). Queries "
+    "with unknown (sketch-less) predictions are admitted and accounted "
+    "at zero.",
+)
+define_flag(
+    "broker_execute_threads", 16,
+    "PER-TENANT worker-thread cap for the served broker.execute topic "
+    "(serve()). A tenant's requests past its cap wait in that tenant's "
+    "own FIFO backlog.",
+)
+define_flag(
+    "admission_queue_s", 5.0,
+    "How long an admission-controlled query may wait for in-flight "
+    "predicted bytes to drain before it is rejected (queue timeout). "
+    "0 rejects immediately when the budget is full.",
+)
+define_flag(
+    "admission_tenant_weights", "",
+    "Registered tenant set with fair-share weights for broker "
+    "admission control, as comma-separated name:weight entries "
+    "(e.g. 'dash:4,batch:1'). Each tenant's slice of "
+    "admission_bytes_budget_mb is budget * weight / sum(weights); the "
+    "default tenant 'shared' is always registered (weight 1 unless "
+    "listed) and absorbs queries with no/unknown tenant.",
+)
+define_flag(
+    "admission_priority_holddown_ms", 0.0,
+    "Non-work-conserving grace window for strict-priority admission: "
+    "after a priority-p query releases, strictly-lower-priority "
+    "waiters stay queued for this many milliseconds. 0 disables.",
+)
+define_flag(
+    "bus_telemetry", True,
+    "Buses stamp the transport tier (services/busstats.py): per-topic-"
+    "class publish/deliver/byte counters, dispatcher-lag + handler "
+    "service-time histograms, queue-depth high-water gauges. Off = buses "
+    "carry no stats object.",
+)
+define_flag(
+    "slow_handler_threshold_ms", 0.0,
+    "Bus handlers slower than this (service time, ms) log topic, "
+    "class, service/lag times to the 'pixie_tpu_torch.slow_handler' "
+    "logger and count in pixie_bus_slow_handlers_total; 0 disables.",
 )

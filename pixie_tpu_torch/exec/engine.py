@@ -53,19 +53,36 @@ served answer's lag behind the clock. A tiered table's cold windows
 decode on the prefetch thread; ``last_stats.decode_s`` and
 ``decode_bytes`` hold that work.
 
+Every ``execute_plan`` runs under a query-lifecycle trace
+(``exec/trace.py``): its ``TraceStats`` is the query's ``QueryStats``
+(``exec/analyze.py``), each executed fragment gets a span, and the
+trace's ``usage`` (rows, windows, staged bytes, bridge bytes, the card's
+allocation peak) is what an agent reports with its fragment. A query's
+cancel handle and stats travel as arguments, and the state its helpers
+read back (join decision, resource report) lives on a thread-local
+scratch, so an agent's one-shot fragment and its live query's poll run
+side by side on one engine; the ``last_*`` attributes are
+last-writer-wins snapshots.
+
+Agent mode (``services/``): a plan split by the distributed planner
+runs in two halves. A data agent's fragment ends in ``BridgeSinkOp``s,
+which return ``{("bridge", id): payload}``: the partial aggregate state
+leaves the card as numpy, or the fragment's rows. The merge agent's
+plan starts from ``BridgeSourceOp``s fed by ``bridge_inputs``; shipped
+states merge on its card and finalize (``exec/bridge.py``).
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card it raises rather than carrying on on the CPU. Not ported
 here: the TPU's scan batching of resident windows (``update_all``,
 which amortises TPU dispatch cost), the native multi-core CPU fold (for
-the XLA:CPU backend), the query-lifecycle tracer and the agent-mode
-state shipping of distributed plans.
+the XLA:CPU backend) and device-resident results
+(``materialize=False``).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -76,6 +93,15 @@ from ..table_store.coldstore import take_decode_meter
 from ..types.batch import HostBatch, bucket_capacity
 from ..types.relation import Relation
 from ..udf.registry import Registry, default_registry
+from . import threadmap
+from .analyze import QueryStats
+from .bridge import (
+    _PendingAggBridge,
+    bind_bridge,
+    bridge_payload,
+    merge_agg_bridge,
+    payload_nbytes,
+)
 from .fragment import _pure_select_map, compile_fragment
 from .joins import (
     JoinDecision,
@@ -88,7 +114,10 @@ from .pipeline import WindowPipeline
 from .result_cache import ResultCache
 from .plan import (
     AggOp,
+    BridgeSinkOp,
+    BridgeSourceOp,
     ColumnRef,
+    EmptySourceOp,
     FilterOp,
     JoinOp,
     LimitOp,
@@ -105,11 +134,13 @@ from .stream import (
     _block_if,
     _concat_host,
     _double_agg_groups,
+    _empty_host_batch,
     _Stream,
     _stream_col_stats,
     _timed,
     _to_host_batch,
 )
+from .trace import Tracer, plan_script
 from .zoneskip import chain_pruner
 
 __all__ = ["Engine", "QueryCancelled", "QueryError", "QueryStats", "resolve_device"]
@@ -132,103 +163,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# Stage names -> the QueryStats field that sums their seconds, and event
-# names -> the field that counts them.
-_SECONDS = {
-    "read": "read_s", "stage": "stage_s", "compute": "fold_s",
-    "finalize": "finalize_s", "materialize": "finalize_s",
-    "decode": "decode_s",
-}
-_COUNTS = {
-    "skip": "skipped_windows", "resident": "resident_windows",
-    "staged": "staged_windows",
-}
-
-
-@dataclass
-class QueryStats:
-    """One query's counters and stage times, on the host clock.
-
-    - ``wall_s``: the plan's execution, to the host result;
-    - ``windows`` / ``rows``: windows folded and rows in them;
-    - ``resident_windows``: windows served from the device cache;
-      ``staged_windows``: windows copied from the host by this query
-      (cache misses, or every window with ``device_residency`` off);
-      ``skipped_windows``: windows pruned by their zone maps, never
-      staged;
-    - ``pipeline``: the window pipeline's counters (depth, windows,
-      stage_secs, stall_secs);
-    - ``rebuckets``: group-by overflows refolded at twice the group
-      capacity (each refold's windows and rows count again);
-    - ``join_retries``: device-join dispatches rerun at twice their
-      output capacity; ``join_capacity_evictions``: learned join
-      capacities the engine's LRU cache dropped (the JAX package's
-      prometheus counters of both);
-    - ``read_s`` (host ring reads), ``stage_s`` (pad, copy, or the
-      cache probe for resident windows), ``fold_s`` (filter, maps, UDA
-      folds) and ``finalize_s`` (finalize and result assembly): with
-      ``sync`` (an attribution run) each stage is fenced and the stages
-      do not overlap; otherwise they are host enqueue times, and the
-      stages of two windows overlap on the prefetch thread;
-    - ``decode_s`` / ``decode_bytes``: cold-tier windows decoded for
-      this query (on the prefetch thread when it runs), their seconds
-      and decoded bytes;
-    - ``cache``: the repeat-serving disposition (``hit``, ``miss``,
-      ``stale``, ``bypass``, ``view``; "" when the query did not go
-      through the result cache or a view); ``freshness_lag_ms``: how far
-      a served answer's newest event time trails the clock.
-    """
-
-    sync: bool = False
-    wall_s: float = 0.0
-    rows: int = 0
-    windows: int = 0
-    resident_windows: int = 0
-    staged_windows: int = 0
-    skipped_windows: int = 0
-    rebuckets: int = 0
-    join_retries: int = 0
-    join_capacity_evictions: int = 0
-    read_s: float = 0.0
-    stage_s: float = 0.0
-    fold_s: float = 0.0
-    finalize_s: float = 0.0
-    decode_s: float = 0.0
-    decode_bytes: int = 0
-    cache: str = ""
-    freshness_lag_ms: float = 0.0
-    pipeline: dict = field(default_factory=lambda: {
-        "depth": 0, "windows": 0, "stage_secs": 0.0, "stall_secs": 0.0,
-    })
-    fragments: list = field(default_factory=list)  # CompiledFragment per run
-    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
-
-    def add(self, stage: str, secs: float = 0.0, nbytes: int = 0) -> None:
-        """Charge ``secs`` (and, for "decode", ``nbytes``) to a stage, or
-        count one event ("skip", "resident", "staged"). Called from the
-        pipeline's producer thread too, hence the lock."""
-        with self._lock:
-            if stage in _COUNTS:
-                name = _COUNTS[stage]
-                setattr(self, name, getattr(self, name) + 1)
-            else:
-                name = _SECONDS[stage]
-                setattr(self, name, getattr(self, name) + secs)
-                if stage == "decode":
-                    self.decode_bytes += nbytes
-
-    def note_freshness_lag(self, lag_ms: float) -> None:
-        """Keep the worst lag of the tables this query read."""
-        with self._lock:
-            self.freshness_lag_ms = max(self.freshness_lag_ms,
-                                        max(0.0, float(lag_ms)))
-
-
 def _charge_decode(stats: QueryStats) -> None:
     """Move this thread's cold-decode meter onto the query's stats."""
     secs, nbytes = take_decode_meter()
     if secs or nbytes:
         stats.add("decode", secs, nbytes=nbytes)
+
+
+class _QueryScratch:
+    """Per-query state the engine's helpers read back (its cancel handle
+    and stats travel as arguments), one per in-flight ``execute_plan``
+    (thread-local on the engine), so queries on other threads never see
+    it."""
+
+    __slots__ = ("join_decision", "resource_report")
+
+    def __init__(self, resource_report=None):
+        self.join_decision = None
+        self.resource_report = resource_report
 
 
 class Engine:
@@ -250,15 +202,23 @@ class Engine:
         # Window-executor prefetch depth (pipeline.py); None reads the
         # pipeline_depth flag per query.
         self.pipeline_depth = pipeline_depth
+        # Per-query scratch (thread-local: each concurrent execute_plan
+        # runs on its caller's thread). The last_* snapshots below are
+        # the last finished query's, last-writer-wins under concurrency.
+        self._tls = threading.local()
+        self._state_lock = threading.Lock()
         self.last_stats: Optional[QueryStats] = None
         # The last query's join routing (joins.JoinDecision: strategy,
         # swap, capacity, retries, skipped windows), None after a query
         # without a join.
-        self.last_join_decision: Optional[JoinDecision] = None
+        self._last_join_decision: Optional[JoinDecision] = None
         # The last query's plan-time resource envelope
         # (analysis.bounds.PlanResourceReport, attached by compile_pxl),
         # None for a plan compiled without it.
-        self.last_resource_report = None
+        self._last_resource_report = None
+        # Query-lifecycle traces (exec/trace.py): every execute_plan gets
+        # one; an agent reads its usage after each fragment.
+        self.tracer = Tracer()
         # Learned join output capacities per (mode, plan, node), LRU
         # (joins.learned_capacity / remember_capacity).
         self._join_capacity_cache: dict = {}
@@ -271,6 +231,34 @@ class Engine:
         # imports this one).
         self.result_cache = ResultCache()
         self._views = None
+
+    # -- per-query scratch ----------------------------------------------------
+    @property
+    def _scratch(self) -> Optional[_QueryScratch]:
+        return getattr(self._tls, "scratch", None)
+
+    @property
+    def last_join_decision(self) -> Optional[JoinDecision]:
+        """The running query's join decision on its own thread, else the
+        last finished query's."""
+        s = self._scratch
+        if s is not None and s.join_decision is not None:
+            return s.join_decision
+        return self._last_join_decision
+
+    @last_join_decision.setter
+    def last_join_decision(self, jd) -> None:
+        s = self._scratch
+        if s is not None:
+            s.join_decision = jd
+        self._last_join_decision = jd
+
+    @property
+    def last_resource_report(self):
+        s = self._scratch
+        if s is not None:
+            return s.resource_report
+        return self._last_resource_report
 
     @property
     def tables(self) -> dict:
@@ -331,6 +319,9 @@ class Engine:
         from ..planner import CompilerState, compile_pxl
         from . import result_cache as rc
 
+        # The query's trace starts here, so the compile gets its own
+        # span; execute_plan ends it.
+        trace = self.tracer.begin_query(script=query, analyze=analyze)
         servable = not analyze and "pxtrace" not in query
         cache_on = servable and self.result_cache.enabled()
         disposition = ""
@@ -342,20 +333,32 @@ class Engine:
                 self.last_join_decision = None
                 self.last_stats = QueryStats(cache=rc.HIT,
                                              freshness_lag_ms=lag_ms)
+                trace.cache = rc.HIT
+                trace.usage.freshness_lag_ms = lag_ms
+                self.tracer.end_query(trace, status="ok")
                 return dict(entry.result)
             disposition = status
         if servable:
             answer = self._try_view_answer(query, now_ns, max_output_rows)
             if answer is not None:
+                trace.cache = rc.VIEW
+                self.tracer.end_query(trace, status="ok")
                 return answer
-        state = CompilerState(
-            schemas={n: t.relation for n, t in self.tables.items()},
-            registry=self.registry,
-            now_ns=now_ns,
-            max_output_rows=max_output_rows,
-            table_stats=self._compile_table_stats(),
-        )
-        compiled = compile_pxl(query, state)
+        try:
+            with trace.span("compile"):
+                state = CompilerState(
+                    schemas={n: t.relation for n, t in self.tables.items()},
+                    registry=self.registry,
+                    now_ns=now_ns,
+                    max_output_rows=max_output_rows,
+                    table_stats=self._compile_table_stats(),
+                )
+                compiled = compile_pxl(query, state)
+        except BaseException as e:
+            self.tracer.end_query(
+                trace, status="error", error=f"{type(e).__name__}: {e}"
+            )
+            raise
         # The watermarks are read BEFORE execution: rows landing during
         # the scan make the stored watermark older than the data, so the
         # next lookup checks again rather than trusting too much.
@@ -367,11 +370,12 @@ class Engine:
                 store_wms = wms
             else:
                 disposition = rc.BYPASS
+        trace.cache = disposition
         try:
             result = self.execute_plan(compiled.plan, analyze=analyze,
-                                       cancel=cancel)
+                                       cancel=cancel, trace=trace)
         finally:
-            self.last_stats.cache = disposition
+            trace.stats.cache = disposition
         if store_wms is not None:
             self.result_cache.store(
                 query, state.now_ns, max_output_rows, compiled.plan,
@@ -468,16 +472,75 @@ class Engine:
                 }
         return out
 
-    def execute_plan(self, plan, analyze: bool = False, cancel=None) -> dict:
-        stats = QueryStats(sync=analyze)
-        self.last_join_decision = None
+    def execute_plan(self, plan, bridge_inputs: dict | None = None,
+                     analyze: bool = False, materialize: bool = True,
+                     cancel=None, trace=None) -> dict:
+        """Execute a plan. Returns {sink name: HostBatch}.
+
+        A data agent's fragment of a split plan ends in BridgeSinkOps and
+        returns {("bridge", id): payload} besides; a merge agent's plan
+        starts from BridgeSourceOps and reads ``bridge_inputs`` = {bridge
+        id: [payloads]}. ``analyze=True`` is an attribution run (fenced
+        per stage); ``cancel`` is an Event-like handle polled per window.
+        ``trace`` is the query's trace when the caller began one (else a
+        new one starts here); this call ends it. Results are always
+        materialized on the host: device-resident results are not in
+        this slice of the port."""
+        if not materialize:
+            raise NotImplementedError(
+                "device-resident results (materialize=False) are not in "
+                "this slice of the port"
+            )
+        if trace is None:
+            trace = self.tracer.begin_query(
+                script=plan_script(plan), analyze=analyze
+            )
+        status, error = "ok", ""
+        try:
+            return self._execute_plan_scoped(
+                plan, bridge_inputs, trace, cancel
+            )
+        except QueryCancelled as e:
+            status, error = "cancelled", str(e)
+            raise
+        except BaseException as e:
+            status, error = "error", f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            self.tracer.end_query(trace, status=status, error=error)
+
+    def _execute_plan_scoped(self, plan, bridge_inputs, trace,
+                             cancel) -> dict:
+        stats = trace.stats
+        report = getattr(plan, "resource_report", None)
+        scratch = _QueryScratch(resource_report=report)
+        prev = self._scratch
+        self._tls.scratch = scratch
+        tm_token = threadmap.bind(trace=trace, phase="host")
+        cuda = self.device.type == "cuda"
+        if cuda:
+            # The allocator's high-water mark while the query ran (other
+            # queries on the same card in this process count too).
+            torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.perf_counter()
         try:
-            return self._execute_plan(plan, stats, cancel)
+            return self._execute_plan(plan, stats, cancel, bridge_inputs)
         finally:
             stats.wall_s = time.perf_counter() - t0
-            self.last_stats = stats
-            self.last_resource_report = getattr(plan, "resource_report", None)
+            threadmap.unbind(tm_token)
+            self._tls.scratch = prev
+            trace.pipeline = dict(stats.pipeline)
+            jd = scratch.join_decision
+            if jd is not None:
+                trace.usage.retries += int(getattr(jd, "retries", 0))
+            if cuda:
+                trace.usage.device_peak_bytes = int(
+                    torch.cuda.max_memory_allocated(self.device)
+                )
+            with self._state_lock:
+                self.last_stats = stats
+                self._last_join_decision = jd
+                self._last_resource_report = report
 
     @staticmethod
     def _plan_fingerprint(plan) -> int:
@@ -493,7 +556,8 @@ class Engine:
             plan._fingerprint = fp
         return fp
 
-    def _execute_plan(self, plan, stats: QueryStats, cancel) -> dict:
+    def _execute_plan(self, plan, stats: QueryStats, cancel,
+                      bridge_inputs: dict | None = None) -> dict:
         results: dict = {}
         outputs: dict = {}
         consumers: dict[int, int] = {}
@@ -510,7 +574,7 @@ class Engine:
 
         # The bounds pass's envelope (analysis/bounds.py), attached by
         # compile_pxl: the joins read their planned output capacity.
-        report = getattr(plan, "resource_report", None)
+        report = self.last_resource_report
         for nid in plan.topo_order():
             node = plan.nodes[nid]
             op = node.op
@@ -530,8 +594,21 @@ class Engine:
                 )
             elif isinstance(op, UDTFSourceOp):
                 results[nid] = self._run_udtf(op)
+            elif isinstance(op, EmptySourceOp):
+                results[nid] = _empty_host_batch(
+                    Relation(list(op.relation_items))
+                )
             elif isinstance(op, (MapOp, FilterOp, AggOp, LimitOp)):
                 st = results[node.inputs[0]]
+                if isinstance(st, _PendingAggBridge):
+                    # The finalize half of a split aggregate: merge the
+                    # shipped partial states on this card and finalize.
+                    if not (isinstance(op, AggOp) and op.mode == "finalize"):
+                        raise QueryError(
+                            "agg bridge must feed its finalize AggOp"
+                        )
+                    results[nid] = merge_agg_bridge(self, st, stats)
+                    continue
                 if isinstance(st, HostBatch):
                     st = self._as_stream(st)
                 if (st.chain and isinstance(st.chain[-1], LimitOp)) or (
@@ -582,6 +659,20 @@ class Engine:
                 results[nid] = _union_host([mat_input(i) for i in node.inputs])
             elif isinstance(op, ResultSinkOp):
                 outputs[op.name] = mat_input(node.inputs[0])
+            elif isinstance(op, BridgeSinkOp):
+                payload = bridge_payload(
+                    self, results[node.inputs[0]], stats, cancel
+                )
+                outputs[("bridge", op.bridge_id)] = payload
+                # Wire accounting: the bytes this fragment ships to the
+                # merge tier.
+                trace = getattr(stats, "trace", None)
+                if trace is not None:
+                    trace.add_wire_bytes(payload_nbytes(payload))
+            elif isinstance(op, BridgeSourceOp):
+                if not bridge_inputs or op.bridge_id not in bridge_inputs:
+                    raise QueryError(f"no input for bridge {op.bridge_id}")
+                results[nid] = bind_bridge(bridge_inputs[op.bridge_id])
             else:
                 raise NotImplementedError(
                     f"{type(op).__name__} is not in this slice of the port"
@@ -610,7 +701,7 @@ class Engine:
         wm = _table_mod.max_watermark_ns(tablets)
         if wm is not None:
             ref = op.stop_time if op.stop_time is not None else time.time_ns()
-            stats.note_freshness_lag((int(ref) - wm) / 1e6)
+            stats.note_freshness_lag((int(ref) - wm) / 1e6, op.table)
 
     def _run_udtf(self, op: UDTFSourceOp) -> HostBatch:
         """Execute a UDTF source (``udtf_source_node.h`` analog): call its
@@ -716,7 +807,10 @@ class Engine:
             with _timed(stats, "stage"):
                 db = self._stage(hb, bucket_capacity(hb.length))
                 _block_if(stats, self.device)
-            stats.add("staged")
+            stats.add("staged", nbytes=sum(
+                p.numel() * p.element_size()
+                for ps in db.cols.values() for p in ps
+            ))
             stats.rows += hb.length
             yield db.cols, db.valid, db
 
@@ -794,7 +888,7 @@ class Engine:
         the [G] output planes, their valid mask and the overflow flag,
         all still on the device (the fused join's dense build reads them
         there; ``_agg_result`` takes them to the host)."""
-        stats.fragments.append(frag)
+        stats.new_fragment(stream.chain, frag)
         state = self._fold_agg_state(stream, frag, stats, cancel)
         with _timed(stats, "finalize"):
             return frag.finalize(state)
@@ -811,6 +905,7 @@ class Engine:
             with _timed(stats, "finalize"):
                 if not bool(overflow):
                     out = _to_host_batch(frag.out_meta, out_cols, valid)
+                    stats.fragments[-1].rows_out = out.length
                     break
             del out_cols, valid, overflow
             stream = _double_agg_groups(stream)
@@ -830,7 +925,7 @@ class Engine:
             )
             return self._agg_result(stream, frag, out_cols, valid, overflow,
                                     stats, cancel)
-        stats.fragments.append(frag)
+        fstats = stats.new_fragment(stream.chain, frag)
 
         # Rows: each window's surviving rows to the host, stopping early
         # once the limit is met.
@@ -856,4 +951,6 @@ class Engine:
         finally:
             pipe.close()
             self._note_pipeline(pipe, stats)
-        return _apply_limit(_concat_host(pieces, frag.relation), frag.limit)
+        out = _apply_limit(_concat_host(pieces, frag.relation), frag.limit)
+        fstats.rows_out = out.length
+        return out

@@ -96,6 +96,28 @@ class CompiledFragment:
     dense_domains: tuple = ()
     dense_offsets: tuple = ()
     dense_strides: tuple = ()
+    # Aggregates whose CARRY holds string ids (``any`` over a string
+    # column), with the input columns those ids encode. Group keys
+    # realign across agents; carries do not, so the bridge merge refuses
+    # them unless every agent shares the dictionaries.
+    string_carry_sources: tuple = ()  # tuple[(out_name, tuple[col, ...])]
+
+
+def _expr_columns(exprs) -> list:
+    """Column names referenced anywhere in a tuple of expression trees."""
+    out: list = []
+
+    def walk(e):
+        if isinstance(e, ColumnRef):
+            if e.name not in out:
+                out.append(e.name)
+        elif isinstance(e, FuncCall):
+            for a in e.args:
+                walk(a)
+
+    for e in exprs:
+        walk(e)
+    return out
 
 
 def _range_valid(cols, valid):
@@ -742,6 +764,14 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
             device_cols[s] = cols[s]
         return device_cols, valid, state["overflow"]
 
+    string_carry_sources = tuple(
+        (ae.out_name, tuple(_expr_columns(ae.args)))
+        for ae, uda, arg_bound, _ in aggs_bound
+        if uda.return_type == DataType.STRING
+        and not uda.struct_fields
+        and any(b.dtype == DataType.STRING for b in arg_bound)
+    )
+
     return CompiledFragment(
         relation=out_rel,
         out_meta=final_meta,
@@ -754,4 +784,5 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
         dense_domains=dense_domains or (),
         dense_offsets=dense_offsets or (),
         dense_strides=dense_strides or (),
+        string_carry_sources=string_carry_sources,
     )

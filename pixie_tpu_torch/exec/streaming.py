@@ -25,10 +25,14 @@ an error or a cancel drops nothing. A zone-map-pruned tail still
 commits (and counts as progress). True expiry past the state's fold
 start refolds from the live rows; a group overflow rebuckets at twice
 the capacity and refolds. Each poll's counters are in ``last_stats``
-(an ``exec/engine.py`` ``QueryStats``). A time-bounded source, a join,
-a union and a UDTF source are refused; the per-agent half of a
-distributed live query (a ``BridgeSinkOp`` terminal) waits for the
-port's distributed executor.
+(an ``exec/analyze.py`` ``QueryStats``). A time-bounded source, a join,
+a union and a UDTF source are refused.
+
+The per-agent half of a distributed live query ends in a
+``BridgeSinkOp``: each poll ships the current partial state
+(``mode="state"``, an ``AggStatePayload``) or the new rows
+(``mode="rows"``, a ``RowsPayload``) to the merge agent instead of
+emitting results (``services/agent.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import time
 from dataclasses import dataclass
 
 from ..table_store.coldstore import take_decode_meter
-from .engine import Engine, QueryStats, _charge_decode
+from .analyze import QueryStats
+from .engine import Engine, _charge_decode
 from .fragment import compile_fragment
 from .pipeline import WindowPipeline
 from .plan import (
@@ -69,12 +74,15 @@ from .zoneskip import chain_pruner
 class StreamUpdate:
     """One incremental result delivery."""
 
-    table: object  # the sink's name
-    batch: object  # HostBatch
+    table: object  # the sink's name (None for a bridge update)
+    batch: object  # HostBatch, or a bridge payload
     seq: int
     # "append": ``batch`` holds only new rows; "replace": ``batch`` is the
-    # whole current aggregate and supersedes every earlier update.
+    # whole current aggregate and supersedes every earlier update;
+    # "state": an agg bridge's partial state (supersedes this agent's
+    # earlier ones); "rows": a row bridge's new rows.
     mode: str
+    bridge_id: object = None
 
 
 @dataclass
@@ -85,6 +93,7 @@ class _StreamChain:
     ops: list
     sink_name: str
     is_agg: bool
+    bridge_id: object = None  # set when the terminal is a BridgeSinkOp
 
 
 def _linearize(plan: Plan) -> _StreamChain:
@@ -106,6 +115,7 @@ def _linearize(plan: Plan) -> _StreamChain:
     }
     ops: list = []
     cur = node.id
+    bridge_id = None
     while True:
         outs = consumers[cur]
         if len(outs) != 1:
@@ -121,16 +131,16 @@ def _linearize(plan: Plan) -> _StreamChain:
             name = nxt.op.table
             break
         elif isinstance(nxt.op, BridgeSinkOp):
-            raise NotImplementedError(
-                "a streaming bridge (the per-agent half of a distributed "
-                "live query) is not in this slice of the port"
-            )
+            name = None
+            bridge_id = nxt.op.bridge_id
+            break
         else:
             raise QueryError(f"operator {type(nxt.op).__name__} is not streamable")
     n_aggs = sum(isinstance(o, AggOp) for o in ops)
     if n_aggs > 1:
         raise QueryError("streaming supports at most one aggregate")
-    return _StreamChain(source=src, ops=ops, sink_name=name, is_agg=n_aggs == 1)
+    return _StreamChain(source=src, ops=ops, sink_name=name,
+                        is_agg=n_aggs == 1, bridge_id=bridge_id)
 
 
 class StreamingQuery:
@@ -333,6 +343,8 @@ class StreamingQuery:
             rows, folded = self._fold_new(frag, stats)
             if not folded and self.seq > 0:
                 return 0
+            if self.chain.bridge_id is not None:
+                return self._ship_state(frag, stats, rows)
             with _timed(stats, "finalize"):
                 cols, valid, overflow = frag.finalize(self._state)
                 overflowed = bool(overflow)
@@ -375,10 +387,7 @@ class StreamingQuery:
                 stats.rows += n
                 stats.windows += 1
                 if hb.length:
-                    self.emit(StreamUpdate(
-                        table=self.chain.sink_name, batch=hb, seq=self.seq,
-                        mode="append",
-                    ))
+                    self.emit(self._rows_update(hb))
                     self.seq += 1
                     self.rows_emitted += hb.length
                 self._wm[wm_key] = wm_hi  # commit after the emit
@@ -387,6 +396,45 @@ class StreamingQuery:
         finally:
             pipe.close()
             self.engine._note_pipeline(pipe, stats)
+        return rows
+
+    def _rows_update(self, hb) -> StreamUpdate:
+        if self.chain.bridge_id is None:
+            return StreamUpdate(table=self.chain.sink_name, batch=hb,
+                                seq=self.seq, mode="append")
+        from .bridge import RowsPayload
+
+        return StreamUpdate(table=None, batch=RowsPayload(batch=hb),
+                            seq=self.seq, mode="rows",
+                            bridge_id=self.chain.bridge_id)
+
+    def _ship_state(self, frag, stats: QueryStats, rows: int) -> int:
+        """The per-agent half of a distributed live aggregate: ship the
+        current partial state to the merge agent (the first poll ships
+        even a neutral state: the merge waits to hear from every agent).
+        An overflowed state rebuckets and refolds before it ships."""
+        from .bridge import AggStatePayload, state_to_host
+
+        if bool(self._state["overflow"]):
+            stats.rebuckets += 1
+            self._rebucket()
+            return self._poll_inner(stats)
+        with _timed(stats, "materialize"):
+            state = state_to_host(self._state)
+        self.emit(StreamUpdate(
+            table=None,
+            batch=AggStatePayload(
+                chain=tuple(self.ops),
+                input_relation=self.relation,
+                input_dicts=dict(self.dicts),
+                state=state,
+                dense_domains=frag.dense_domains,
+                dense_offsets=frag.dense_offsets,
+                dense_strides=frag.dense_strides,
+            ),
+            seq=self.seq, mode="state", bridge_id=self.chain.bridge_id,
+        ))
+        self.seq += 1
         return rows
 
     def run(self, poll_interval_s: float = 0.25, max_rounds=None) -> int:

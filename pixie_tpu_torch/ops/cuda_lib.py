@@ -15,6 +15,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -114,3 +115,18 @@ def check_launch(name: str, err: int) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``
+    and, by the launching thread's name, in
+    ``wrapper.launches_by_thread`` (an agent runs each fragment on a bus
+    thread named for it). Locked: agents launch from several threads."""
+    name = threading.current_thread().name
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        by_thread = wrapper.launches_by_thread
+        by_thread[name] = by_thread.get(name, 0) + 1

@@ -127,7 +127,7 @@ def _fold_cuda(slots, values, g: int, want_min: bool):
         dev.index, stream,
     )
     cuda_lib.check_launch("dense_fold", err)
-    dense_fold.launches += 1
+    cuda_lib.count_launch(dense_fold)
     return out[0], out[1], out[2], (out[3] if want_min else None)
 
 
@@ -166,7 +166,8 @@ def dense_fold(slots, values, g: int, want_min: bool = False):
     ``slots`` int32[n]: ids in [0, g) fold, any other id is dropped;
     ``values`` float32[n]. ``want_min=False`` skips the min and returns
     None in its place. A CUDA tensor launches the kernel (and counts the
-    launch in ``dense_fold.launches``); a CPU tensor takes the plain
+    launch in ``dense_fold.launches`` and, by thread, in
+    ``dense_fold.launches_by_thread``); a CPU tensor takes the plain
     version. The kernel applies the non-finite restore and the empty-slot
     rules itself, in the same launch.
     """
@@ -179,3 +180,4 @@ def dense_fold(slots, values, g: int, want_min: bool = False):
 
 
 dense_fold.launches = 0
+dense_fold.launches_by_thread = {}

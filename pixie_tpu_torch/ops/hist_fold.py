@@ -83,7 +83,8 @@ def hist_fold(ids, values, n_slots: int):
 
     ``ids`` int32[n]: ids in [0, n_slots) fold, any other id is dropped;
     ``values`` float32[n]. A CUDA tensor launches the kernel of
-    ``route(n_slots)`` (and counts the launch in ``hist_fold.launches``)
+    ``route(n_slots)`` (and counts the launch in ``hist_fold.launches``
+    and, by thread, in ``hist_fold.launches_by_thread``)
     after one memset of the outputs; the two results are the columns of
     one f32[n_slots, 2] tensor. A CPU tensor takes the plain version.
     """
@@ -103,8 +104,9 @@ def hist_fold(ids, values, n_slots: int):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_lib.check_launch("hist_fold", err)
-    hist_fold.launches += 1
+    cuda_lib.count_launch(hist_fold)
     return out[:, 0], out[:, 1]
 
 
 hist_fold.launches = 0
+hist_fold.launches_by_thread = {}

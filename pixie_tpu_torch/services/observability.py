@@ -1,0 +1,350 @@
+"""Service metrics: the process metrics registry.
+
+A copy of the metrics half of the JAX package's
+``services/observability.py`` (reference parity: the prometheus-cpp
+registry every C++ service carries, ``src/common/metrics/metrics.h:27``).
+Metric kinds: ``counter`` (monotonic), ``gauge`` and ``histogram``
+(fixed buckets; cumulative ``_bucket{le=...}`` + ``_sum``/``_count``
+exposition). The query-lifecycle tracer (``exec/trace.py``), the bus
+(``services/busstats.py``), the tracker and the broker record here.
+The HTTP surface (healthz, statusz, ``/metrics``, ``/debug/queryz``)
+comes with the telemetry slice.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+from dataclasses import dataclass, field
+
+#: Prometheus client default latency buckets (seconds).
+DEFAULT_BUCKETS = (
+    0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+@dataclass
+class _Metric:
+    name: str
+    kind: str  # "counter" | "gauge" | "histogram"
+    help: str
+    values: dict = field(default_factory=dict)  # labels tuple -> value
+    # histogram only: ascending finite upper bounds (le); +Inf implicit.
+    buckets: tuple = ()
+
+
+def _esc_label(v) -> str:
+    """Exposition-format label-value escaping."""
+    return (
+        str(v)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _esc_help(v) -> str:
+    """HELP text escaping (the format escapes backslash + newline only;
+    quotes are legal in HELP)."""
+    return str(v).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt_bound(b: float) -> str:
+    """Bucket bound rendering: 0.005 -> '0.005', 1.0 -> '1'."""
+    return format(b, "g")
+
+
+class MetricsRegistry:
+    """Process-wide named counters/gauges/histograms with label support."""
+
+    def __init__(self):
+        self._metrics: dict[str, _Metric] = {}
+        self._lock = threading.Lock()
+        self._collectors: list = []  # callables run at render time
+
+    def counter(self, name: str, help: str = "") -> "Counter":
+        with self._lock:
+            m = self._metrics.setdefault(name, _Metric(name, "counter", help))
+        return Counter(m, self._lock)
+
+    def gauge(self, name: str, help: str = "") -> "Gauge":
+        with self._lock:
+            m = self._metrics.setdefault(name, _Metric(name, "gauge", help))
+        return Gauge(m, self._lock)
+
+    def histogram(self, name: str, help: str = "",
+                  buckets=DEFAULT_BUCKETS) -> "Histogram":
+        bk = tuple(sorted(float(b) for b in buckets))
+        with self._lock:
+            m = self._metrics.setdefault(
+                name, _Metric(name, "histogram", help, buckets=bk)
+            )
+        return Histogram(m, self._lock)
+
+    def register_collector(self, fn) -> None:
+        """``fn(registry)`` runs before each render — pull-style metrics
+        (table stats, cache bytes) refresh here."""
+        self._collectors.append(fn)
+
+    def values(self, name: str) -> dict:
+        """Snapshot of a counter/gauge's per-label-set values
+        ({labels tuple: value}; {} for unknown names or histograms —
+        those go through ``histogram_state``/``quantiles``)."""
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None or m.kind == "histogram":
+                return {}
+            return dict(m.values)
+
+    def render(self) -> str:
+        # A raising collector must not 500 the whole scrape: count it
+        # and keep rendering the rest (prometheus-cpp Collect contract).
+        failed = []
+        for fn in list(self._collectors):
+            try:
+                fn(self)
+            except Exception:
+                failed.append(getattr(fn, "__name__", repr(fn)))
+        if failed:
+            c = self.counter(
+                "pixie_collector_errors_total",
+                "Metric collector callbacks that raised during a render",
+            )
+            for name in failed:
+                c.labels(collector=name).inc()
+
+        lines = []
+        with self._lock:
+            for m in sorted(self._metrics.values(), key=lambda m: m.name):
+                if m.help:
+                    lines.append(f"# HELP {m.name} {_esc_help(m.help)}")
+                lines.append(f"# TYPE {m.name} {m.kind}")
+                if m.kind == "histogram":
+                    self._render_histogram(m, lines)
+                    continue
+                for labels, v in sorted(m.values.items()):
+                    if labels:
+                        lbl = ",".join(
+                            f'{k}="{_esc_label(val)}"' for k, val in labels
+                        )
+                        lines.append(f"{m.name}{{{lbl}}} {v}")
+                    else:
+                        lines.append(f"{m.name} {v}")
+        return "\n".join(lines) + "\n"
+
+    @staticmethod
+    def _render_histogram(m: _Metric, lines: list) -> None:
+        for labels, st in sorted(m.values.items()):
+            base = ",".join(
+                f'{k}="{_esc_label(val)}"' for k, val in labels
+            )
+
+            def series(name, extra=""):
+                lbl = ",".join(x for x in (base, extra) if x)
+                return f"{name}{{{lbl}}}" if lbl else name
+
+            cum = 0
+            for b, c in zip(m.buckets, st["counts"]):
+                cum += c
+                lines.append(
+                    f'{series(m.name + "_bucket", f_le(b))} {cum}'
+                )
+            cum += st["counts"][-1]
+            lines.append(f'{series(m.name + "_bucket", LE_INF)} {cum}')
+            lines.append(f'{series(m.name + "_sum")} {st["sum"]}')
+            lines.append(f'{series(m.name + "_count")} {st["count"]}')
+
+    def histogram_state(self, name: str, **labels):
+        """Raw cumulative state of a histogram metric, summed across
+        matching label sets: ``(bounds, counts, count, sum)`` with
+        ``counts`` carrying the implicit +Inf slot last, or None when
+        the metric is missing. Callers that want PER-RUN quantiles
+        snapshot this before and after and interpolate over the delta
+        (``delta_quantiles``) — the histograms themselves are
+        process-lifetime cumulative."""
+        want = set(labels.items())
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None or m.kind != "histogram":
+                return None
+            counts = [0] * (len(m.buckets) + 1)
+            total = 0
+            sum_ = 0.0
+            for lbls, st in m.values.items():
+                if want and not want <= set(lbls):
+                    continue
+                for i, c in enumerate(st["counts"]):
+                    counts[i] += c
+                total += st["count"]
+                sum_ += st["sum"]
+            return (m.buckets, counts, total, sum_)
+
+    def quantiles(self, name: str, qs=(0.5, 0.95, 0.99), **labels):
+        """Approximate quantiles of a histogram metric from its buckets
+        (prometheus ``histogram_quantile`` linear interpolation; the
+        +Inf bucket clamps to the highest finite bound). Label kwargs
+        filter; observations are summed across all matching label sets.
+        Returns {q: value} or None when the metric is missing/empty."""
+        st = self.histogram_state(name, **labels)
+        if st is None:
+            return None
+        bounds, counts, total, _sum = st
+        if total == 0 or not bounds:
+            # Zero observations (or a bucketless histogram, where every
+            # observation lands in +Inf and no finite interpolation
+            # exists): there IS no quantile — None, never a made-up 0.0.
+            return None
+        return _interpolate_quantiles(bounds, counts, total, qs)
+
+
+def delta_quantiles(before, after, qs=(0.5, 0.95, 0.99)):
+    """Quantiles of the observations recorded BETWEEN two
+    ``MetricsRegistry.histogram_state`` snapshots (bucket-count
+    subtraction + the shared interpolation). Returns {q: value} or None
+    when either snapshot is missing or nothing was observed in between
+    — the load tester's per-run latency report
+    (``services/load_tester.py``)."""
+    if before is None or after is None:
+        return None
+    bounds, counts_b, total_b, _ = before
+    _bounds_a, counts_a, total_a, _ = after
+    total = total_a - total_b
+    if total <= 0 or not bounds or len(counts_a) != len(counts_b):
+        return None
+    counts = [a - b for a, b in zip(counts_a, counts_b)]
+    if any(c < 0 for c in counts):
+        return None  # metric reset between snapshots
+    return _interpolate_quantiles(bounds, counts, total, qs)
+
+
+def _interpolate_quantiles(bounds, counts, total, qs) -> dict:
+    """histogram_quantile linear interpolation over cumulative bucket
+    counts (the +Inf bucket clamps to the highest finite bound). One
+    shared implementation for both quantile surfaces — callers
+    guarantee ``total > 0`` and non-empty ``bounds``."""
+    out = {}
+    for q in qs:
+        rank = q * total
+        cum = 0.0
+        val = bounds[-1]
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if cum + c >= rank:
+                if i >= len(bounds):  # +Inf bucket
+                    val = bounds[-1]
+                else:
+                    lo = bounds[i - 1] if i > 0 else 0.0
+                    val = lo + (bounds[i] - lo) * max(rank - cum, 0.0) / c
+                break
+            cum += c
+        out[q] = val
+    return out
+
+
+def f_le(b: float) -> str:
+    """le="..." label fragment for one finite bucket bound."""
+    return f'le="{_fmt_bound(b)}"'
+
+
+LE_INF = 'le="+Inf"'
+
+
+class _Bound:
+    def __init__(self, metric: _Metric, lock, labels=()):
+        self._m = metric
+        self._lock = lock
+        self._labels = tuple(sorted(labels))
+
+    def labels(self, **kw):
+        return type(self)(self._m, self._lock, tuple(kw.items()))
+
+    def value(self) -> float:
+        """Current scalar value for this label set (0.0 if never set) —
+        counters/gauges only; histograms keep structured state."""
+        with self._lock:
+            v = self._m.values.get(self._labels, 0.0)
+        return v if isinstance(v, float) else 0.0
+
+
+class Counter(_Bound):
+    def inc(self, v: float = 1.0) -> None:
+        if v < 0:
+            raise ValueError(
+                f"counter {self._m.name} cannot decrease (inc {v}); "
+                "Prometheus counters are monotonic — use a gauge"
+            )
+        with self._lock:
+            self._m.values[self._labels] = (
+                self._m.values.get(self._labels, 0.0) + v
+            )
+
+
+class Gauge(_Bound):
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._m.values[self._labels] = float(v)
+
+    def inc(self, v: float = 1.0) -> None:
+        with self._lock:
+            self._m.values[self._labels] = (
+                self._m.values.get(self._labels, 0.0) + v
+            )
+
+    def dec(self, v: float = 1.0) -> None:
+        self.inc(-v)
+
+
+class Histogram(_Bound):
+    def quantiles(self, qs=(0.5, 0.95, 0.99)):
+        """Approximate quantiles for THIS bound label set (all label
+        sets when unbound). Returns {q: value} or None on a
+        zero-observation histogram — callers never special-case an
+        empty distribution, they get None, not a crash or a fake 0."""
+        with self._lock:
+            st = self._m.values.get(self._labels)
+            bounds = self._m.buckets
+            if st is not None:
+                counts = list(st["counts"])
+                total = st["count"]
+            elif not self._labels:
+                # Unbound handle: aggregate across every label set.
+                counts = [0] * (len(bounds) + 1)
+                total = 0
+                for s in self._m.values.values():
+                    for i, c in enumerate(s["counts"]):
+                        counts[i] += c
+                    total += s["count"]
+            else:
+                return None
+        if total == 0 or not bounds:
+            return None
+        return _interpolate_quantiles(bounds, counts, total, qs)
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        with self._lock:
+            st = self._m.values.get(self._labels)
+            if st is None:
+                st = self._m.values[self._labels] = {
+                    "counts": [0] * (len(self._m.buckets) + 1),
+                    "sum": 0.0,
+                    "count": 0,
+                }
+            # le semantics: an observation equal to a bound counts in
+            # that bound's bucket (bisect_left finds the first bound
+            # >= v); past the last bound -> the implicit +Inf slot.
+            st["counts"][bisect.bisect_left(self._m.buckets, v)] += 1
+            st["sum"] += v
+            st["count"] += 1
+
+
+#: Default process registry (metrics.h GetMetricsRegistry analog).
+default_registry = MetricsRegistry()
+
+
+def default_counter(name: str, help: str = "") -> Counter:
+    """Bound counter on the process-wide default registry. Registration
+    is idempotent and binding is cheap — call at the increment site, no
+    per-caller lazy-cache dance needed."""
+    return default_registry.counter(name, help)

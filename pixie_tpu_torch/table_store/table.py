@@ -779,7 +779,7 @@ class Table:
                     continue
                 cache.put((w, k, win.row0, win.n), win)
                 if stats is not None:
-                    stats.add("staged")
+                    stats.add("staged", nbytes=win.nbytes)
             elif stats is not None:
                 stats.add("resident")
             lo, hi = max(lo_row, win.row0), min(hi_row, win.row0 + win.n)

@@ -8,7 +8,10 @@ A table created with a device and a window size stages its windows at
 that size onto that device from its first append on; new tablets
 inherit both from the base tablet. A tiered table's demoted windows keep
 their staged device windows (``Table.first_row_id`` spans both tiers),
-so repeat scans of a tiered table stay resident.
+so repeat scans of a tiered table stay resident. A PEM agent installs
+lazy per-table byte budgets (``table_budgets``) that shape a table at
+its creation, and ships ``freshness()`` to the agent tracker, which
+merges the agents' records with ``merge_freshness``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,15 @@ class TableStore:
         self._lock = threading.Lock()
         # name -> {tablet_id -> Table}
         self._tables: dict[str, dict[str, Table]] = {}
+        # Lazy per-table byte budgets: {name: max_bytes, "*": default}.
+        # Applied when a table is created with no explicit max_bytes (a
+        # PEM installs the reference's InitSchemas split here).
+        self.table_budgets: dict = {}
+
+    def _budget_for(self, name: str, max_bytes: int) -> int:
+        if max_bytes != -1 or not self.table_budgets:
+            return max_bytes
+        return self.table_budgets.get(name, self.table_budgets.get("*", -1))
 
     def add_table(
         self,
@@ -48,7 +60,7 @@ class TableStore:
         with self._lock:
             base = next(iter(self._tables.get(name, {}).values()), None)
             t = _new_table(
-                name, relation, max_bytes,
+                name, relation, self._budget_for(name, max_bytes),
                 base.dicts if base is not None else None,
                 device, device_window_rows,
             )
@@ -70,7 +82,8 @@ class TableStore:
             if existing is not None:
                 return existing
             t = _new_table(
-                name, relation, max_bytes, None, device, device_window_rows
+                name, relation, self._budget_for(name, max_bytes), None,
+                device, device_window_rows,
             )
             self._tables.setdefault(name, {})[DEFAULT_TABLET] = t
             return t
@@ -102,10 +115,59 @@ class TableStore:
                 t = _new_table(
                     name,
                     base.relation if base is not None else None,
-                    base.max_bytes if base is not None else -1,
+                    base.max_bytes if base is not None
+                    else self._budget_for(name, -1),
                     base.dicts if base is not None else None,
                     base.device if base is not None else None,
                     base.device_window_rows if base is not None else None,
                 )
                 tablets[tablet_id] = t
         return t.append(data, time_cols=time_cols)
+
+    def relation(self, name: str) -> Optional[Relation]:
+        tablets = self.tablets(name)
+        return tablets[0].relation if tablets else None
+
+    def freshness(self) -> dict:
+        """{table: merged freshness dict} across each table's tablets: the
+        per-agent half of the cluster merge the tracker performs."""
+        out: dict = {}
+        for name in self.table_names():
+            merged = None
+            for t in self.tablets(name):
+                if t._backend is None:
+                    continue
+                merged = merge_freshness(merged, t.freshness())
+            if merged is not None:
+                out[name] = merged
+        return out
+
+
+#: Freshness keys that merge by summation (live sizes and monotonic
+#: counters over disjoint shards); the rest are watermark-style.
+_FRESHNESS_SUM_KEYS = (
+    "rows", "bytes", "hot_bytes", "cold_bytes", "device_bytes",
+    "rows_total", "bytes_total", "expired_rows_total",
+    "expired_bytes_total", "ingest_rows_per_s",
+    "hot_rows", "cold_rows", "cold_raw_bytes",
+    "cold_demotions_total", "cold_evictions_total",
+    "cold_decode_seconds_total",
+)
+
+
+def merge_freshness(into: dict | None, fresh: dict) -> dict:
+    """Fold one tablet or agent freshness record into an accumulator
+    (shared by ``TableStore.freshness`` and the tracker's cluster merge):
+    sums for counters, max for ``watermark``/``last_append``, min for
+    ``min_time`` (-1 = no live rows, ignored)."""
+    if into is None:
+        return dict(fresh)
+    for k in _FRESHNESS_SUM_KEYS:
+        into[k] = into.get(k, 0) + fresh.get(k, 0)
+    for k in ("watermark", "last_append"):
+        into[k] = max(into.get(k, -1), fresh.get(k, -1))
+    mt_a, mt_b = into.get("min_time", -1), fresh.get("min_time", -1)
+    into["min_time"] = (
+        mt_b if mt_a < 0 else (mt_a if mt_b < 0 else min(mt_a, mt_b))
+    )
+    return into

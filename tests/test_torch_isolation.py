@@ -3,8 +3,10 @@
 query through every module of the window path (device cache, sketches,
 zone skipping, pipeline), the group-by over UINT128 keys (the hash
 form, the ``any`` UDA) and a windowed radix join leaves neither in
-``sys.modules``, and
-nothing falls back to the CPU or to a plain version on its own."""
+``sys.modules``, neither does a query through a CPU cluster of agents
+(bus, tracker, PEMs, Kelvin, broker, bridges), and nothing falls back to
+the CPU or to a plain version on its own: an engine or an agent built
+without an engine raises when there is no card."""
 
 import ast
 import os
@@ -129,6 +131,78 @@ print("ok")
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_cpu_cluster_query_loads_neither_jax_nor_the_jax_package():
+    code = """
+import sys, time
+import numpy as np
+from pixie_tpu_torch import Engine
+from pixie_tpu_torch.services import (
+    AgentTracker, KelvinAgent, MessageBus, PEMAgent, QueryBroker)
+bus = MessageBus()
+tracker = AgentTracker(bus, expiry_s=60.0, check_interval_s=60.0)
+agents = []
+try:
+    for i in range(2):
+        pem = PEMAgent(bus, f"pem-{i}", heartbeat_interval_s=0.05,
+                       engine=Engine(window_rows=1024, device="cpu")).start()
+        agents.append(pem)
+        pem.append_data("t", {"time_": np.arange(3000),
+                              "k": ["a", "b", "c"] * 1000,
+                              "v": np.arange(3000)})
+        pem._register()
+    agents.append(KelvinAgent(bus, "kelvin-0", heartbeat_interval_s=0.05,
+                              engine=Engine(device="cpu")).start())
+    deadline = time.monotonic() + 5
+    while "t" not in tracker.schemas() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    broker = QueryBroker(bus, tracker)
+    res = broker.execute_script(
+        "import px\\ndf = px.DataFrame(table='t')\\n"
+        "px.display(df.groupby('k').agg(n=('v', px.count)), 'o')"
+    )
+    out = res["tables"]["o"].to_pydict()
+    assert sorted(out["n"].tolist()) == [2000] * 3, out
+    broker.close()
+finally:
+    for a in agents:
+        a.stop()
+    tracker.close()
+    bus.close()
+for mod in ("services.agent", "services.query_broker", "services.msgbus",
+            "services.tracker", "exec.bridge", "exec.trace"):
+    assert "pixie_tpu_torch." + mod in sys.modules, mod
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_agent_without_an_engine_raises_without_a_card(monkeypatch):
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.services import KelvinAgent, MessageBus, PEMAgent
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bus = MessageBus()
+    try:
+        for cls in (PEMAgent, KelvinAgent):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cls(bus, "a")
+        agent = PEMAgent(bus, "a", engine=Engine(device="cpu"))
+        assert agent.engine.device.type == "cpu"
+    finally:
+        bus.close()
 
 
 def test_engine_without_a_card_raises(monkeypatch):

@@ -400,3 +400,37 @@ def test_c_constants_match_wrappers():
     assert f"0x{int(order[0]):08X}u" in dense
     assert f"0x{int(order[1]):08X}u" in dense
 
+
+
+def test_launch_counts_survive_concurrent_launchers():
+    """Agents launch from several bus threads at once: the counter and
+    its per-thread tally lose no update (a shortened switch interval
+    makes a lost read-modify-write likely if the count were unlocked)."""
+    import sys
+    import threading
+    import types
+
+    from pixie_tpu_torch.ops import cuda_lib
+
+    fake = types.SimpleNamespace(launches=0, launches_by_thread={})
+    n_threads, per = 16, 2000
+
+    def launch():
+        for _ in range(per):
+            cuda_lib.count_launch(fake)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch, name=f"launcher-{i}")
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30.0)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert fake.launches == n_threads * per
+    assert fake.launches_by_thread == {
+        f"launcher-{i}": per for i in range(n_threads)}

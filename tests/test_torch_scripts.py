@@ -16,10 +16,16 @@ from a t-digest quantile (traced through the plan from a
 package's own Pallas-vs-XLA tolerance (tests/test_pallas.py). Row
 scripts (no aggregate, join or union) compare in row order; the others
 compare as row sets, sorted by their exactly-compared columns.
-``px/agent_status`` reads the agent tracker over the service bus, which
-the port does not have yet.
+``px/agent_status`` reads the agent tracker over the service bus: it
+compiles against registries bound to a bus, and runs on a one-PEM port
+cluster against the JAX one (agent ids and kinds exact, heartbeat ages
+under three intervals).
 """
 
+import contextlib
+import time
+
+import numpy as np
 import pytest
 import torch
 
@@ -32,19 +38,25 @@ from pixie_tpu.planner import compile_pxl as jax_compile_pxl
 from pixie_tpu.scripts import list_scripts as jax_list_scripts
 from pixie_tpu.scripts import load_script as jax_load_script
 from pixie_tpu.udf.registry import default_registry as jax_registry
+import pixie_tpu.services as jax_services
+from pixie_tpu.services.vizier_funcs import (
+    bind_service_registry as jax_bind_service_registry,
+)
 from chip_smoke import _quantile_columns, check_library_output
 from pixie_tpu_torch import Engine
 from pixie_tpu_torch.ingest.schemas import CANONICAL_SCHEMAS, init_schemas
 from pixie_tpu_torch.planner import CompilerState, compile_pxl
 from pixie_tpu_torch.scripts import list_scripts, load_script
 from pixie_tpu_torch.udf.registry import default_registry
+import pixie_tpu_torch.services as port_services
+from pixie_tpu_torch.services.vizier_funcs import bind_service_registry
 
 from test_scripts import _seed_all_tables
 from test_torch_planner import _plan_shape
 
 WINDOW = 1 << 11
 AGENT_STATUS = "px/agent_status"
-NEEDS_SERVICES = "GetAgentStatus needs the service bus (ROADMAP item 18)"
+HEARTBEAT_S = 0.05
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -66,9 +78,72 @@ def engines():
     return jax_eng, eng
 
 
-def _skip_agent_status(name):
-    if name == AGENT_STATUS:
-        pytest.skip(NEEDS_SERVICES)
+def _registries(name):
+    """(port, JAX) registries to compile ``name`` with: bound to a bus
+    for ``px/agent_status`` (its UDTF asks the agent tracker)."""
+    if name != AGENT_STATUS:
+        return default_registry(), jax_registry()
+    return (
+        bind_service_registry(default_registry(), port_services.MessageBus(),
+                              "test"),
+        jax_bind_service_registry(jax_registry(),
+                                  jax_services.MessageBus(), "test"),
+    )
+
+
+@contextlib.contextmanager
+def _one_pem_cluster(services, engine):
+    """A PEM with ``http_events`` rows and a Kelvin, a tracker and a
+    broker on one bus; stopped and closed on exit."""
+    bus = services.MessageBus()
+    tracker = services.AgentTracker(bus, expiry_s=60.0, check_interval_s=60.0)
+    agents, broker = [], None
+    try:
+        pem = services.PEMAgent(bus, "pem-0", engine=engine(),
+                                heartbeat_interval_s=HEARTBEAT_S)
+        agents.append(pem.start())
+        agents.append(services.KelvinAgent(
+            bus, "kelvin-0", engine=engine(),
+            heartbeat_interval_s=HEARTBEAT_S,
+        ).start())
+        pem.append_data("http_events", {
+            "time_": np.arange(100, dtype=np.int64),
+            "latency_ns": np.arange(100, dtype=np.int64),
+        })
+        pem._register()
+        deadline = time.monotonic() + 5.0
+        while ("http_events" not in tracker.schemas()
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        broker = services.QueryBroker(bus, tracker)
+        yield broker
+    finally:
+        if broker is not None:
+            broker.close()
+        for a in agents:
+            a.stop()
+        tracker.close()
+        bus.close()
+
+
+def _agent_status_rows(services, engine):
+    with _one_pem_cluster(services, engine) as broker:
+        res = broker.execute_script(load_script(AGENT_STATUS).pxl)
+    (hb,) = res["tables"].values()
+    d = hb.to_pydict()
+    order = sorted(range(hb.length), key=lambda i: d["agent_id"][i])
+    return {k: [v[i] for i in order] for k, v in d.items()}
+
+
+def _check_agent_status():
+    got = _agent_status_rows(
+        port_services, lambda: Engine(window_rows=WINDOW, device="cpu"))
+    ref = _agent_status_rows(
+        jax_services, lambda: JaxEngine(window_rows=WINDOW))
+    assert got["agent_id"] == ref["agent_id"] == ["kelvin-0", "pem-0"]
+    assert got["kind"] == ref["kind"]
+    assert got["num_tables"] == [0, 1]
+    assert all(0 <= a < 3 * HEARTBEAT_S + 1.0 for a in got["last_heartbeat_s"])
 
 
 def test_library_is_the_jax_packages():
@@ -92,14 +167,14 @@ def test_canonical_schemas_match_jax_package():
 
 @pytest.mark.parametrize("name", list_scripts())
 def test_compiles_like_jax(name):
-    _skip_agent_status(name)
+    reg, jax_reg = _registries(name)
     pxl = load_script(name).pxl
     got = compile_pxl(pxl, CompilerState(
-        schemas=dict(CANONICAL_SCHEMAS), registry=default_registry(),
+        schemas=dict(CANONICAL_SCHEMAS), registry=reg,
         now_ns=10**18, max_output_rows=10_000,
     ))
     ref = jax_compile_pxl(pxl, JaxCompilerState(
-        schemas=dict(JAX_SCHEMAS), registry=jax_registry(),
+        schemas=dict(JAX_SCHEMAS), registry=jax_reg,
         now_ns=10**18, max_output_rows=10_000,
     ))
     assert _plan_shape(got.plan) == _plan_shape(ref.plan)
@@ -108,7 +183,9 @@ def test_compiles_like_jax(name):
 
 @pytest.mark.parametrize("name", list_scripts())
 def test_executes_like_jax(name, engines):
-    _skip_agent_status(name)
+    if name == AGENT_STATUS:
+        _check_agent_status()
+        return
     jax_eng, eng = engines
     pxl = load_script(name).pxl
     compiled = compile_pxl(pxl, CompilerState(

@@ -214,13 +214,31 @@ def test_unstreamable_plans_refused_like_jax(case):
 
 
 def test_bridge_sink_waits_for_the_distributed_executor():
-    eng = Engine(window_rows=W, device="cpu")
-    _push([eng], 0, 10)
-    p = Plan()
-    src = p.add(MemorySourceOp(table="http_events"))
-    p.add(BridgeSinkOp(bridge_id=1), [src])
-    with pytest.raises(NotImplementedError, match="not in this slice"):
-        StreamingQuery(eng, p, emit=lambda u: None)
+    """A BridgeSinkOp terminal (the per-agent half of a distributed live
+    query) ships each poll's new rows as a row payload, as the JAX
+    stream does: same seqs, modes, bridge ids and rows."""
+    from pixie_tpu.exec.plan import BridgeSinkOp as JaxBridgeSinkOp
+    from pixie_tpu.exec.plan import MemorySourceOp as JaxMemorySourceOp
+    from pixie_tpu.exec.plan import Plan as JaxPlan
+    from pixie_tpu.exec.streaming import StreamingQuery as JaxStreamingQuery
+
+    engines = _engines()
+    _push(engines, 0, 10)
+    p, jp = Plan(), JaxPlan()
+    p.add(BridgeSinkOp(bridge_id=1), [p.add(MemorySourceOp(table="http_events"))])
+    jp.add(JaxBridgeSinkOp(bridge_id=1),
+           [jp.add(JaxMemorySourceOp(table="http_events"))])
+    ups, jups = [], []
+    sq = StreamingQuery(engines[0], p, emit=ups.append)
+    jsq = JaxStreamingQuery(engines[1], jp, emit=jups.append)
+    assert sq.poll() == jsq.poll() == 10
+    _push(engines, 10, 5)
+    assert sq.poll() == jsq.poll() == 5
+    assert [(u.seq, u.mode, u.bridge_id, u.table) for u in ups] == [
+        (u.seq, u.mode, u.bridge_id, u.table) for u in jups
+    ] == [(0, "rows", 1, None), (1, "rows", 1, None)]
+    for u, j in zip(ups, jups):
+        _same(_rows(u.batch.batch), _rows(j.batch.batch))
 
 
 SHARD_Q = """
