@@ -58,7 +58,32 @@ without them. In order it:
    one PEM dies and is expired: px/service_stats replans onto 3 PEMs and
    equals numpy over their quarters; a live px/service_stats over the 3
    (``execute_script_streaming``), one more window appended on each,
-   ends at the one-shot answer;
+   ends at the one-shot answer. Then the same cluster across processes
+   (``processes``): the broker (bus, BusServer, tracker, QueryBroker) in
+   this process, 4 PEM workers (this script run with ``--pem-worker``,
+   each regenerating the replay from SEED and appending its own quarter
+   in its own dictionary order) and one ``python -m
+   pixie_tpu_torch.deploy kelvin``, each with its own engine on the
+   card, on the framed-TCP netbus: the 5 scripts in 3 turns after a
+   warm-up, each answer held to the single engine's, beside the
+   in-process cluster's seconds, the slowest PEM fragment, the Kelvin's
+   merge (its ``/debug/queryz``), the bridge bytes, the BusServer's
+   frames and bytes, the netbus's round trip with and without Nagle's
+   algorithm, each process's largest query peak on the card and the
+   bytes its allocator holds, and each PEM process's
+   launches of both kernels (> 0 on http_stats_float64 and
+   px/service_stats); then one PEM process is killed (SIGKILL), and once
+   the tracker has expired it px/service_stats replans onto 3 PEMs and
+   equals numpy over their quarters. Then ``deploy``: ``python -m
+   pixie_tpu_torch.deploy broker``, two ``pem`` roles with the seq-gen
+   source and a ``kelvin``, each a process on the card; ``python -m
+   pixie_tpu_torch.cli run --broker`` answers the sequences group-by,
+   its counts over a fixed set of rows summing to the count of the same
+   rows without it; ``cli agents`` lists the 3 agents; ``api.Client``
+   returns the CLI's table through a record handler; the broker's
+   ``/healthz`` and ``/metrics`` answer 200. Every child's output goes
+   to a file, every wait is bounded, every child is stopped at the end,
+   and a child that dies or prints a traceback fails the phase;
 7. the group_by phase: which uint64 ops the card's PyTorch has; a
    2^23-row process_stats replay (20,000 upids in 2,000 pods, UINT128
    keys, 0.9 GB resident); a filtered row chain that carries the upid
@@ -3482,6 +3507,9 @@ def phase_cluster(eng, replay, device, window: int = WINDOW,
                 vals = [r[k] for r in recs if r[k] is not None]
                 rec[k] = float(np.median(vals)) if vals else None
             rec["launches"] = launches
+            out.setdefault("turns", {})[name] = {
+                k: rec[k] for k in ("secs", "slowest_fragment_s", "merge_s",
+                                    "wire_bytes")}
             if profile and device.type == "cuda":
                 rec.update(busy_share(lambda: cl_query(c, name)))
             print(json.dumps(rec))
@@ -3558,6 +3586,574 @@ def cl_expiry_and_live(c, replay, window: int, quarter: int) -> int:
                       "hist_fold_launches": launches["hist_fold"]["total"],
                       "one_shot_secs": one_shot["secs"], "checked": True}))
     return launches["hist_fold"]["total"]
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE_ENV = "PIXIE_TPU_TORCH_DEVICE"  # pixie_tpu_torch.deploy.DEVICE_ENV
+PR_EXPIRY_S = 8.0  # the tracker's silence window: above the deployed
+#                    Kelvin's 5 s heartbeat, 8 of the workers' 1 s beats
+PR_START_S = 180.0  # a child's start: torch, a CUDA context, the replay
+PR_WARMUP_S = 120.0  # a script's first query across the cold children
+PR_CTL_S = 30.0  # a worker's answer to a counter request
+
+
+class Children:
+    """The processes a phase starts, each with its stdout and stderr in
+    files of one temporary directory (never a pipe: an undrained pipe
+    blocks a child before it registers). ``check`` fails when one has
+    died or printed a traceback; ``close`` stops every one (SIGTERM, then
+    SIGKILL after 20 s) and returns their exit codes."""
+
+    def __init__(self, tag: str):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+        self.procs: dict = {}
+        self.killed: set = set()
+
+    def start(self, name: str, argv: list, env: dict) -> None:
+        out = open(os.path.join(self.dir, f"{name}.out"), "w")
+        err = open(os.path.join(self.dir, f"{name}.err"), "w")
+        self.procs[name] = subprocess.Popen(
+            argv, env=env, cwd=self.dir, stdin=subprocess.DEVNULL,
+            stdout=out, stderr=err)
+        out.close()
+        err.close()
+
+    def text(self, name: str, which: str) -> str:
+        with open(os.path.join(self.dir, f"{name}.{which}")) as f:
+            return f.read()
+
+    def check(self) -> None:
+        for name, p in self.procs.items():
+            if name in self.killed:
+                continue
+            err = self.text(name, "err")
+            assert p.poll() is None and "Traceback" not in err, (
+                f"child {name} rc={p.poll()}: {err[-3000:]}")
+
+    def wait_for(self, pred, what: str, timeout_s: float):
+        """Poll ``pred`` (children checked each round) until it returns
+        something true, at most ``timeout_s``."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            got = pred()
+            if got:
+                return got
+            self.check()
+            assert time.monotonic() < deadline, f"{what}: no answer in {timeout_s} s"
+            time.sleep(0.05)
+
+    def line(self, name: str, pattern: str, timeout_s: float) -> str:
+        """The first stdout line of ``name`` matching ``pattern``."""
+        import re
+
+        def find():
+            for ln in self.text(name, "out").splitlines():
+                if re.search(pattern, ln):
+                    return ln
+            return None
+
+        return self.wait_for(find, f"{name} {pattern!r}", timeout_s)
+
+    def kill(self, name: str) -> None:
+        import signal
+
+        self.procs[name].send_signal(signal.SIGKILL)
+        self.procs[name].wait(timeout=30)
+        self.killed.add(name)
+
+    def close(self) -> dict:
+        import signal
+
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        rcs = {}
+        for name, p in self.procs.items():
+            try:
+                rcs[name] = p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs[name] = p.wait(timeout=20)
+        return rcs
+
+    def verify_exits(self, rcs: dict) -> None:
+        """Every child but the killed ones ended with 0 and no traceback."""
+        for name, rc in rcs.items():
+            if name in self.killed:
+                continue
+            err = self.text(name, "err")
+            assert rc == 0 and "Traceback" not in err, (
+                f"child {name} rc={rc}: {err[-3000:]}")
+
+
+def child_env(device, **extra) -> dict:
+    """A child's environment: this checkout first on PYTHONPATH, and the
+    device variable only when the run is not on the card."""
+    env = {k: v for k, v in os.environ.items() if k != DEVICE_ENV}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    if device.type != "cuda":
+        env[DEVICE_ENV] = device.type
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def pem_worker(argv) -> int:
+    """``chip_smoke.py --pem-worker PORT I ROWS WINDOW QUARTER``: one PEM
+    in a process of its own on the card (or the device the device
+    variable names). It regenerates the ROWS-row replay from SEED,
+    appends its quarter [I * QUARTER, (I + 1) * QUARTER) in the order of
+    its own dictionaries (``cl_batches``, as the cluster phase deals
+    them), starts a PEMAgent on a RemoteBus to the broker's BusServer at
+    PORT, and answers ``smoke.pem-I.ctl`` requests: ``zero`` sets the
+    kernels' launch counters to 0, ``read`` returns them with the bytes
+    the torch allocator holds on the card. It prints one JSON line when it serves and one with
+    its counts when it ends (SIGTERM, or its parent gone)."""
+    import signal
+    import threading
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.deploy import env_device
+    from pixie_tpu_torch.services.agent import PEMAgent
+    from pixie_tpu_torch.services.netbus import RemoteBus
+
+    port, i, rows, window, quarter = (int(a) for a in argv[:5])
+    aid = f"pem-{i}"
+    device = env_device()
+    parent = os.getppid()
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+
+    def reserved():
+        return (torch.cuda.memory_reserved(device)
+                if device.type == "cuda" else None)
+
+    eng = Engine(window_rows=window, device=device)
+    eng.create_table("http_events")
+    replay = make_replay(rows)
+    t0 = time.perf_counter()
+    for hb in cl_batches(replay, i, i * quarter, (i + 1) * quarter, window,
+                         i * quarter):
+        eng.append_data("http_events", hb)
+    append_s = time.perf_counter() - t0
+    del replay
+    bus = RemoteBus("127.0.0.1", port)
+
+    def on_ctl(msg):
+        if msg.get("op") == "zero":
+            _zero_launches()
+        bus.publish(msg["_reply_to"], {"launches": _launch_counts(),
+                                       "reserved_bytes": reserved()})
+
+    bus.subscribe(f"smoke.{aid}.ctl", on_ctl)
+    pem = PEMAgent(bus, aid, engine=eng, heartbeat_interval_s=CL_HEARTBEAT_S)
+    pem.start()
+    print(json.dumps({"worker": aid, "serving": True, "append_s": append_s,
+                      "resident_bytes":
+                          eng.tables["http_events"].resident_bytes,
+                      "device": str(device)}), flush=True)
+    while not stop.wait(0.5):
+        if os.getppid() != parent:
+            break  # the smoke is gone: never outlive it
+    pem.stop()
+    bus.close()
+    print(json.dumps({"worker": aid, "launches": _launch_counts(),
+                      "reserved_bytes": reserved()}), flush=True)
+    return 0
+
+
+def pr_scrape(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def pr_reserved_from_metrics(body: str):
+    """The bytes the torch allocator holds on the card, from a role's
+    ``/metrics`` (``pixie_device_memory_bytes{kind="bytes_reserved"}``)."""
+    for ln in body.splitlines():
+        if (ln.startswith("pixie_device_memory_bytes{")
+                and 'kind="bytes_reserved"' in ln):
+            return int(float(ln.rsplit(" ", 1)[1]))
+    return None
+
+
+def pr_query(broker, name: str, kelvin_obs: int, timeout_s: float = 120.0):
+    """One broker query across the processes and its split: the slowest
+    PEM fragment (the agents' ``exec_time_s``), the Kelvin's merge (its
+    trace for the query id on the Kelvin role's ``/debug/queryz``) and
+    the bridge bytes."""
+    from pixie_tpu_torch.scripts import load_script
+
+    pxl = (load_script(name).pxl if name == "px/agent_status"
+           else query_text(name))
+    t0 = time.perf_counter()
+    res = broker.execute_script(pxl, timeout_s=timeout_s)
+    secs = time.perf_counter() - t0
+    frags = {a: st["exec_time_s"] for a, st in res["agent_stats"].items()}
+    _, body = pr_scrape(kelvin_obs, "/debug/queryz")
+    merges = [t for t in json.loads(body)["recent"]
+              if t.get("qid") == res["qid"]]
+    # Each query's allocator peak on the card (the engine resets the
+    # peak when a query starts), by process.
+    peaks = {a: st["usage"].get("device_peak_bytes")
+             for a, st in res["agent_stats"].items()}
+    peaks["kelvin-0"] = max(
+        (t["usage"].get("device_peak_bytes") or 0 for t in merges),
+        default=None)
+    return {
+        "res": res, "secs": secs,
+        "slowest_fragment_s": max(frags.values()) if frags else 0.0,
+        "fragments_s": frags,
+        "merge_s": (max(t["duration_ms"] for t in merges) / 1e3
+                    if merges else None),
+        "device_peaks": peaks,
+        "wire_bytes": sum(int(st["usage"]["wire_bytes"])
+                          for st in res["agent_stats"].values()),
+    }
+
+
+def netbus_rtt(sizes=(1 << 10, 1 << 16, 1 << 20), n: int = 30) -> dict:
+    """Median ms of one request and its reply through a BusServer and a
+    RemoteBus in this process (the netbus's two hops each way), by
+    payload size, with Nagle's algorithm off on both sockets and on
+    again (as the netbus leaves them, like the JAX package's)."""
+    import socket
+
+    from pixie_tpu_torch.services import MessageBus
+    from pixie_tpu_torch.services.netbus import BusServer, RemoteBus
+
+    bus = MessageBus()
+    server = BusServer(bus)
+    rb = RemoteBus("127.0.0.1", server.port)
+    out = {}
+    try:
+        bus.subscribe("smoke.echo", lambda m: bus.publish(
+            m["_reply_to"], {"b": m["b"]}))
+        rb.request("smoke.echo", {"b": b""}, timeout_s=10.0)
+        for nodelay in (1, 0):
+            for sock in [rb.sock] + [c.sock for c in server._clients]:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY,
+                                nodelay)
+            for size in sizes:
+                payload = b"x" * size
+                rb.request("smoke.echo", {"b": payload}, timeout_s=10.0)
+                ms = []
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    rb.request("smoke.echo", {"b": payload}, timeout_s=10.0)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                out[f"{'nodelay' if nodelay else 'nagle'}_{size}B_ms"] = (
+                    float(np.median(ms)))
+    finally:
+        rb.close()
+        server.close()
+        bus.close()
+    return out
+
+
+def pr_ctl(bus, pems, op: str) -> dict:
+    return {p: bus.request(f"smoke.{p}.ctl", {"op": op}, timeout_s=PR_CTL_S)
+            for p in pems}
+
+
+def phase_processes(eng, replay, device, in_process: dict,
+                    window: int = WINDOW, quarter: int = CL_QUARTER,
+                    turns: int = CL_TURNS) -> dict:
+    """The cluster phase across processes: the broker (MessageBus,
+    BusServer, AgentTracker, QueryBroker) in this process, CL_PEMS PEM
+    workers (``--pem-worker``) and one ``python -m
+    pixie_tpu_torch.deploy kelvin``, each with its own engine on the one
+    card, all on the framed-TCP netbus. After a warm-up each of
+    CL_SCRIPTS runs ``turns`` times through ``broker.execute_script``,
+    held to the single engine ``eng``'s answer (the cluster phase's
+    tolerances), beside the in-process cluster's seconds
+    (``in_process``, from ``phase_cluster``). Then the last PEM process
+    is killed (SIGKILL); once the tracker has expired it,
+    px/service_stats replans onto the others and is held to numpy over
+    their quarters. Returns each kernel's launches per PEM process."""
+    import torch
+
+    from pixie_tpu_torch.services import AgentTracker, MessageBus, QueryBroker
+    from pixie_tpu_torch.services.netbus import BusServer
+
+    refs = {n: cl_reference(eng, n) for n in CL_SCRIPTS
+            if n != "px/agent_status"}
+    rows = len(replay[0])
+    pems = [f"pem-{i}" for i in range(CL_PEMS)]
+    t_phase = time.perf_counter()
+    bus = MessageBus()
+    server = BusServer(bus)
+    tracker = AgentTracker(bus, expiry_s=PR_EXPIRY_S, check_interval_s=0.25)
+    kids = Children("processes")
+    broker, out, rcs = None, {}, {}
+    try:
+        for i, aid in enumerate(pems):
+            kids.start(aid, [sys.executable, os.path.abspath(__file__),
+                             "--pem-worker", str(server.port), str(i),
+                             str(rows), str(window), str(quarter)],
+                       child_env(device))
+        kids.start("kelvin-0", [sys.executable, "-m", "pixie_tpu_torch.deploy",
+                                "kelvin"],
+                   child_env(device, PIXIE_TPU_BROKER=f"127.0.0.1:{server.port}",
+                             PIXIE_TPU_AGENT_ID="kelvin-0",
+                             PIXIE_TPU_OBS_PORT=0))
+        kelvin_obs = int(kids.line("kelvin-0", r"obs :\d+", PR_START_S)
+                         .split("obs :")[1].split()[0])
+        kids.wait_for(lambda: len(tracker.agent_ids()) == len(pems) + 1
+                      and "http_events" in tracker.schemas(),
+                      "registration", PR_START_S)
+        start_s = time.perf_counter() - t_phase
+        served = {aid: json.loads(kids.line(aid, r'"serving"', 5.0))
+                  for aid in pems}
+        print(json.dumps({"phase": "processes_start", "pems": len(pems),
+                          "rows_per_pem": quarter, "secs": start_s,
+                          "kelvin_obs_port": kelvin_obs,
+                          "workers": served}))
+        if device.type == "cuda":
+            assert all(w["resident_bytes"] == quarter * ROW_BYTES
+                       for w in served.values()), served
+        broker = QueryBroker(bus, tracker)
+        peaks: dict = {}  # process -> the largest query peak on the card
+
+        def note_peaks(rec):
+            for a, b in rec["device_peaks"].items():
+                if b is not None:
+                    peaks[a] = max(peaks.get(a, 0), int(b))
+
+        for name in CL_SCRIPTS:
+            t0 = time.perf_counter()
+            pr_query(broker, name, kelvin_obs, timeout_s=PR_WARMUP_S)
+            warm_s = time.perf_counter() - t0
+            pr_ctl(bus, pems, "zero")
+            recs = []
+            for _ in range(turns):
+                recs.append(pr_query(broker, name, kelvin_obs))
+                note_peaks(recs[-1])
+                res = recs[-1]["res"]
+                kids.check()
+                if name == "px/agent_status":
+                    (hb,) = res["tables"].values()
+                    d = hb.to_pydict()
+                    assert sorted(d["agent_id"]) == sorted(pems + ["kelvin-0"])
+                    continue
+                assert set(res["agent_stats"]) == set(pems), res["agent_stats"]
+                ref, loose, ordered = refs[name]
+                assert sorted(res["tables"]) == sorted(ref), name
+                for k in ref:
+                    check_library_output(f"processes {name}:{k}",
+                                         res["tables"][k], ref[k], loose[k],
+                                         ordered)
+            ctl = pr_ctl(bus, pems, "read")
+            kernel = CL_KERNEL_OF.get(name)
+            per_pem = {k: {p: ctl[p]["launches"][k] for p in pems}
+                       for k in ("dense_fold", "hist_fold")}
+            if kernel is not None and device.type == "cuda":
+                assert all(n > 0 for n in per_pem[kernel].values()), (
+                    name, per_pem)
+                out.setdefault(kernel, {})[name] = {
+                    "per_pem_process_per_query": {
+                        p: n // turns for p, n in per_pem[kernel].items()},
+                    "per_query": sum(per_pem[kernel].values()) // turns,
+                }
+            rec = {"phase": "processes", "script": name, "checked": True,
+                   "warm_up_s": warm_s, "turns": [r["secs"] for r in recs],
+                   "secs": float(np.median([r["secs"] for r in recs]))}
+            for k in ("slowest_fragment_s", "merge_s", "wire_bytes"):
+                vals = [r[k] for r in recs if r[k] is not None]
+                rec[k] = float(np.median(vals)) if vals else None
+            rec["fragments_s"] = recs[-1]["fragments_s"]
+            ip = in_process.get(name, {})
+            rec["in_process"] = ip
+            rec["wire_bytes_equal_in_process"] = (
+                ip.get("wire_bytes") == rec["wire_bytes"] if ip else None)
+            rec["launches_per_pem"] = per_pem
+            print(json.dumps(rec))
+        conns = server.busz()
+        reserved = {p: ctl[p]["reserved_bytes"] for p in pems}
+        _, metrics = pr_scrape(kelvin_obs, "/metrics")
+        reserved["kelvin-0"] = pr_reserved_from_metrics(metrics)
+        # This process holds the broker and the single engine's tables.
+        reserved["smoke (broker, single engine)"] = (
+            torch.cuda.memory_reserved(device) if device.type == "cuda"
+            else None)
+        print(json.dumps({
+            "phase": "processes_wire",
+            "round_trip_ms": netbus_rtt(),
+            "connections": conns,
+            "frames": sum(c["frames_sent"] + c["frames_recv"] for c in conns),
+            "bytes": sum(c["bytes_sent"] + c["bytes_recv"] for c in conns),
+            "query_peak_bytes": peaks,
+            "reserved_bytes": reserved}))
+        # One PEM process dies: the tracker expires it, the next query
+        # replans onto the others.
+        dead = pems[-1]
+        t0 = time.perf_counter()
+        kids.kill(dead)
+        kids.wait_for(lambda: dead not in tracker.agent_ids(), "expiry",
+                      PR_EXPIRY_S + 10.0)
+        expiry_s = time.perf_counter() - t0
+        live = pems[:-1]
+        rec = pr_query(broker, "px/service_stats", kelvin_obs)
+        res = rec["res"]
+        assert res["distributed_plan"].n_data_shards == len(live)
+        assert set(res["agent_stats"]) == set(live)
+        (hb,) = res["tables"].values()
+        cl_check_service_stats(
+            hb, cl_expect_service_stats(replay, slice(0, len(live) * quarter)))
+        kids.check()
+        print(json.dumps({"phase": "processes_expiry",
+                          "script": "px/service_stats", "killed": dead,
+                          "signal": "SIGKILL", "expired_after_s": expiry_s,
+                          "pems": len(live), "secs": rec["secs"],
+                          "wire_bytes": rec["wire_bytes"], "checked": True}))
+    finally:
+        if broker is not None:
+            broker.close()
+        rcs = kids.close()
+        tracker.close()
+        server.close()
+        bus.close()
+    kids.verify_exits(rcs)
+    ends = {aid: json.loads(kids.line(aid, r'"launches"', 5.0))
+            for aid in pems if aid not in kids.killed}
+    print(json.dumps({"phase": "processes_end", "exit_codes": rcs,
+                      "worker_totals": ends,
+                      "secs": time.perf_counter() - t_phase}))
+    return out
+
+
+DP_SEQ_BOUND = 64  # seq-gen rows with x below this: one transfer per PEM
+DP_START_S = 120.0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_deploy(device) -> None:
+    """The system started the way its users start it:
+    ``python -m pixie_tpu_torch.deploy broker``, two ``pem`` roles with
+    the seq-gen source (``PIXIE_TPU_SEQGEN=1``) and one ``kelvin``, each
+    a process on the card. ``python -m pixie_tpu_torch.cli run --broker``
+    answers the sequences group-by of ``tests/test_cli.py``'s deploy
+    test; over the seq-gen rows with x < DP_SEQ_BOUND (one transfer per
+    PEM, fixed once pushed) the group-by's counts sum to the count of
+    the same rows without it, run right after; ``cli agents`` lists both
+    PEMs and the Kelvin; ``api.Client.execute_script`` returns the CLI's
+    table through a record handler; the broker's ``/healthz`` and
+    ``/metrics`` answer 200. Every wait is bounded."""
+    from pixie_tpu_torch.api import Client, TableRecordHandler
+
+    t_phase = time.perf_counter()
+    netbus, obs = _free_port(), _free_port()
+    addr = f"127.0.0.1:{netbus}"
+    env = child_env(device, PIXIE_TPU_NETBUS_PORT=netbus,
+                    PIXIE_TPU_OBS_PORT=obs, PIXIE_TPU_BROKER=addr)
+    kids = Children("deploy")
+    timings, rcs = {}, {}
+    seq = ("import px\ndf = px.DataFrame(table='sequences')\n"
+           "s = df.groupby('modulo10').agg(n=('x', px.count))\n"
+           "px.display(s)\n")
+    bounded = seq.replace(
+        "df = px.DataFrame(table='sequences')\n",
+        f"df = px.DataFrame(table='sequences')\ndf = df[df.x < {DP_SEQ_BOUND}]\n")
+    whole = bounded.replace("df.groupby('modulo10').agg", "df.agg")
+    for name, text in (("seq.pxl", seq), ("bounded.pxl", bounded)):
+        with open(os.path.join(kids.dir, name), "w") as f:
+            f.write(text)
+    pems = ["pem-deploy-0", "pem-deploy-1"]
+
+    def cli(*argv):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "pixie_tpu_torch.cli", *argv],
+            env=env, cwd=kids.dir, capture_output=True, text=True,
+            timeout=120)
+        assert r.returncode == 0, (argv, r.stdout[-2000:], r.stderr[-2000:])
+        timings.setdefault("cli_s", []).append(time.perf_counter() - t0)
+        return r.stdout
+
+    try:
+        kids.start("broker", [sys.executable, "-m", "pixie_tpu_torch.deploy",
+                              "broker"], env)
+        for aid in pems:
+            kids.start(aid, [sys.executable, "-m", "pixie_tpu_torch.deploy",
+                             "pem"],
+                       {**env, "PIXIE_TPU_AGENT_ID": aid,
+                        "PIXIE_TPU_OBS_PORT": "0", "PIXIE_TPU_SEQGEN": "1"})
+        kids.start("kelvin", [sys.executable, "-m", "pixie_tpu_torch.deploy",
+                              "kelvin"],
+                   {**env, "PIXIE_TPU_AGENT_ID": "kelvin-deploy",
+                    "PIXIE_TPU_OBS_PORT": "0"})
+        kids.line("broker", r"\[broker\] netbus", DP_START_S)
+
+        def dial():
+            try:
+                return Client("127.0.0.1", netbus, connect_timeout_s=2.0)
+            except OSError:
+                return None
+
+        client = kids.wait_for(dial, "dial the broker", DP_START_S)
+        with client:
+            def count():
+                if "sequences" not in client.schemas():
+                    return None
+                n = client.execute_script(whole, timeout_s=30.0)["output"]["n"]
+                return len(n) and int(n[0]) == DP_SEQ_BOUND * len(pems)
+
+            kids.wait_for(count, "seq-gen rows from both PEMs", DP_START_S)
+            timings["ready_s"] = time.perf_counter() - t_phase
+            text = cli("run", "--broker", addr, "--timeout", "60",
+                       os.path.join(kids.dir, "seq.pxl"))
+            assert "== output (10 rows) ==" in text, text
+            rows = json.loads(cli("run", "--broker", addr, "-o", "json",
+                                  os.path.join(kids.dir, "bounded.pxl")))
+            n_whole = int(client.execute_script(
+                whole, timeout_s=30.0)["output"]["n"][0])
+            assert sorted(r["modulo10"] for r in rows["rows"]) == list(range(10))
+            assert sum(r["n"] for r in rows["rows"]) == n_whole == (
+                DP_SEQ_BOUND * len(pems)), (rows, n_whole)
+            agents = cli("agents", "--broker", addr)
+            assert all(a in agents for a in pems + ["kelvin-deploy"]), agents
+
+            class Recorder(TableRecordHandler):
+                def __init__(self):
+                    self.rows = []
+
+                def handle_record(self, record):
+                    self.rows.append(record)
+
+            rec = Recorder()
+            client.execute_script(bounded, timeout_s=30.0,
+                                  handler_factory=lambda t: rec)
+            key = lambda r: r["modulo10"]
+            assert sorted(rec.rows, key=key) == sorted(rows["rows"], key=key)
+        for path in ("/healthz", "/metrics"):
+            code, _body = pr_scrape(obs, path)
+            assert code == 200, (path, code)
+        kids.check()
+    finally:
+        rcs = kids.close()
+    kids.verify_exits(rcs)
+    print(json.dumps({"phase": "deploy", "roles": ["broker"] + pems
+                      + ["kelvin-deploy"], "checked": True,
+                      "ready_s": timings.get("ready_s"),
+                      "cli_s": timings.get("cli_s"), "exit_codes": rcs,
+                      "secs": time.perf_counter() - t_phase}))
 
 
 def main() -> int:
@@ -3651,6 +4247,14 @@ def main() -> int:
         k["launches_cluster"] = cluster[k["name"]]
     gc.collect()
     elapsed("cluster")
+    # The same cluster with its PEMs and Kelvin in processes of their
+    # own, then the roles started as users start them.
+    processes = phase_processes(eng, replay, device, cluster["turns"])
+    for k in kernels:
+        k["launches_processes"] = processes[k["name"]]
+    elapsed("processes")
+    phase_deploy(device)
+    elapsed("deploy")
     phase_tail(eng, replay)
     del eng, table
     gc.collect()
@@ -3700,4 +4304,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pem-worker"]:
+        sys.exit(pem_worker(sys.argv[2:]))
     sys.exit(main())

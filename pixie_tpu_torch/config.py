@@ -77,6 +77,11 @@ def clear_flag(name: str) -> None:
         _OVERRIDES.pop(name, None)
 
 
+def all_flags() -> dict:
+    """{name: (value, doc)} snapshot — the statusz listing."""
+    return {n: (get_flag(n), _DOCS[n]) for n in sorted(_DEFAULTS)}
+
+
 define_flag("window_rows", 1 << 17, "Rows per streamed device window.")
 define_flag("max_groups_limit", 1 << 22,
             "Hard cap for group-by capacity (the planner's eager-"
@@ -251,6 +256,17 @@ define_flag(
     "bus_secret", "",
     "Shared secret for netbus/broker bearer tokens; empty disables auth "
     "(single-trust-domain deployments).",
+)
+define_flag(
+    "client_request_retries", 3,
+    "api.Client retries of IDEMPOTENT control-plane requests (agents, "
+    "schemas, debug_queries, ...) on BusTimeout. execute_script is "
+    "never blind-retried (non-idempotent).",
+)
+define_flag(
+    "client_retry_backoff_ms", 50.0,
+    "Initial backoff for api.Client idempotent-request retries; "
+    "doubles per attempt (capped at 2s) with +0..25% jitter.",
 )
 define_flag(
     "dispatch_retries", 3,

@@ -207,6 +207,11 @@ class Engine:
         # the last finished query's, last-writer-wins under concurrency.
         self._tls = threading.local()
         self._state_lock = threading.Lock()
+        # Engine-lifetime pipeline totals (exported by
+        # services.observability.engine_collector).
+        self.pipeline_totals = {
+            "windows": 0, "stage_secs": 0.0, "stall_secs": 0.0,
+        }
         self.last_stats: Optional[QueryStats] = None
         # The last query's join routing (joins.JoinDecision: strategy,
         # swap, capacity, retries, skipped windows), None after a query
@@ -831,14 +836,16 @@ class Engine:
             self._staged_windows(stream, stats, cancel), depth, cancel=cancel
         )
 
-    @staticmethod
-    def _note_pipeline(pipe: WindowPipeline, stats: QueryStats) -> None:
+    def _note_pipeline(self, pipe: WindowPipeline, stats: QueryStats) -> None:
         """Fold a finished pipeline's counters into the query's stats (a
-        plan with an interior limit runs two pipelines)."""
+        plan with an interior limit runs two pipelines) and the engine's
+        lifetime totals."""
         c = pipe.counters()
         stats.pipeline["depth"] = c["depth"]
-        for k in ("windows", "stage_secs", "stall_secs"):
-            stats.pipeline[k] += c[k]
+        with self._state_lock:
+            for k in ("windows", "stage_secs", "stall_secs"):
+                stats.pipeline[k] += c[k]
+                self.pipeline_totals[k] += c[k]
 
     def _put_side(self, v):
         """Put one fused-join side table on the engine's device (numpy

@@ -9,9 +9,10 @@ queued delivery, one dispatcher thread per subscription); the data plane
 passes payload objects in-process where the reference streams protobuf
 over gRPC.
 
-A port of the JAX package's ``services/``. Exported here is what this
-slice ports; the bus between processes (``netbus``/``wire``), broker
-HA, self-telemetry and fault injection are later slices.
+A port of the JAX package's ``services/``. Agents in other processes dial
+the broker's bus over the framed-TCP netbus (``netbus.py``, frames in the
+``wire.py`` codec); ``deploy.py`` starts the roles. Broker HA,
+self-telemetry and fault injection are later slices.
 """
 
 from .agent import Agent, KelvinAgent, PEMAgent

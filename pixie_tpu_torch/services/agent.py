@@ -17,6 +17,10 @@ partial state across bridges (``exec/bridge.py``); a Kelvin merges the
 states on its card and finalizes. A fragment that fails is reported in
 band on ``query.{qid}.results``; it is never run again another way.
 
+Every agent owns an ingest ``Collector`` wired to its engine (the
+Stirling push path, ``pem_manager.cc:48``): ``start`` runs it on a thread
+of its own and ``stop`` stops it and its connectors.
+
 Not in this slice: the dynamic tracepoint surface (a tracepoint message
 is answered with a FAILED status), self-telemetry and the heartbeat's
 profile summary.
@@ -66,6 +70,11 @@ class Agent:
         self.engine.registry = bind_service_registry(
             self.engine.registry, bus, f"agent-{agent_id}"
         )
+        # The ingest loop's sources push into this agent's engine.
+        from ..ingest.collector import Collector
+
+        self.collector = Collector()
+        self.collector.wire_to(self.engine)
         self.heartbeat_interval_s = heartbeat_interval_s
         self.asid = None
         self._registered = threading.Event()
@@ -144,6 +153,9 @@ class Agent:
         self._register()
         self._hb_thread = threading.Thread(target=self._heartbeat_loop, daemon=True)
         self._hb_thread.start()
+        # The ingest loop (Stirling::RunAsThread): drains connector
+        # buffers into the engine on their push cadence.
+        self.collector.run_as_thread()
         return self
 
     def stop(self, timeout_s: float = 5.0):
@@ -156,6 +168,7 @@ class Agent:
         hb = getattr(self, "_hb_thread", None)
         if hb is not None and hb is not threading.current_thread():
             hb.join(timeout_s)
+        self.collector.stop()
 
     def _register(self):
         msg = {

@@ -1,19 +1,28 @@
-"""Service metrics: the process metrics registry.
+"""Service observability: metrics registry + healthz/statusz/metrics HTTP.
 
-A copy of the metrics half of the JAX package's
-``services/observability.py`` (reference parity: the prometheus-cpp
-registry every C++ service carries, ``src/common/metrics/metrics.h:27``).
-Metric kinds: ``counter`` (monotonic), ``gauge`` and ``histogram``
-(fixed buckets; cumulative ``_bucket{le=...}`` + ``_sum``/``_count``
-exposition). The query-lifecycle tracer (``exec/trace.py``), the bus
+A port of the JAX package's ``services/observability.py`` (reference
+parity: the prometheus-cpp registry every C++ service carries,
+``src/common/metrics/metrics.h:27``, and the shared Go service handlers
+of ``src/shared/services/``). Metric kinds: ``counter`` (monotonic),
+``gauge`` and ``histogram`` (fixed buckets; cumulative
+``_bucket{le=...}`` + ``_sum``/``_count`` exposition). The
+query-lifecycle tracer (``exec/trace.py``), the bus
 (``services/busstats.py``), the tracker and the broker record here.
-The HTTP surface (healthz, statusz, ``/metrics``, ``/debug/queryz``)
-comes with the telemetry slice.
+
+``ObservabilityServer`` serves ``/healthz``, ``/statusz``, ``/version``,
+``/metrics``, ``/debug/queryz``, ``/debug/tablez``, ``/debug/cachez`` and
+``/debug/busz`` over stdlib http.server. The endpoints whose sources are
+later slices (``/debug/tracez``: the telemetry's cluster trace view;
+``/debug/pprof`` and ``/debug/flamez``: the profiler;
+``/debug/programz``: the JAX package's XLA program registry) answer 404,
+as the JAX server does when their source is not wired.
 """
 
 from __future__ import annotations
 
 import bisect
+import http.server
+import json
 import threading
 from dataclasses import dataclass, field
 
@@ -348,3 +357,238 @@ def default_counter(name: str, help: str = "") -> Counter:
     is idempotent and binding is cheap — call at the increment site, no
     per-caller lazy-cache dance needed."""
     return default_registry.counter(name, help)
+
+
+#: Endpoints whose sources are later slices of the port: the 404 body the
+#: JAX server gives when that source is not wired.
+_UNWIRED = {
+    "/debug/pprof": "no profiler wired\n",
+    "/debug/flamez": "no profiler wired\n",
+    "/debug/programz": "no program registry wired\n",
+    "/debug/tracez": "no trace view wired\n",
+}
+
+
+class ObservabilityServer:
+    """healthz / statusz / metrics / debug endpoints for one service
+    process. Wire a ``tracer`` (``exec.trace.Tracer``, e.g.
+    ``engine.tracer``) to serve ``/debug/queryz`` — the in-flight +
+    recent query-trace listing."""
+
+    def __init__(self, registry: MetricsRegistry | None = None,
+                 statusz_fn=None, health_fn=None, tracer=None,
+                 tablez_fn=None, cachez_fn=None, busz_fn=None):
+        self.registry = registry or default_registry
+        self.statusz_fn = statusz_fn  # () -> dict
+        self.health_fn = health_fn  # () -> (bool, str)
+        self.tracer = tracer  # exec.trace.Tracer | None
+        # () -> dict | None: /debug/tablez — the storage-tier freshness
+        # snapshot (an agent serves its TableStore.freshness(); a broker
+        # the tracker's cluster merge).
+        self.tablez_fn = tablez_fn
+        # () -> dict | None: /debug/cachez — the result cache (and an
+        # agent's materialized views).
+        self.cachez_fn = cachez_fn
+        # () -> dict | None: /debug/busz — the transport-tier snapshot.
+        self.busz_fn = busz_fn
+        self._httpd = None
+
+    def handle(self, path: str) -> tuple[int, str, str]:
+        """(status, content_type, body) — transport-independent core.
+        ``path`` may carry a query string, which these endpoints
+        ignore."""
+        path, _, _query = path.partition("?")
+        if path == "/healthz":
+            ok, msg = (True, "ok") if self.health_fn is None else self.health_fn()
+            return (200 if ok else 503, "text/plain", msg + "\n")
+        if path == "/statusz":
+            from ..config import all_flags
+            from ..version import version_info
+
+            status = {
+                "version": version_info(),
+                "flags": {k: v for k, (v, _) in all_flags().items()},
+            }
+            if self.statusz_fn is not None:
+                status.update(self.statusz_fn())
+            return (200, "application/json", json.dumps(status, indent=1))
+        if path == "/version":
+            from ..version import version_info
+
+            return (200, "application/json", json.dumps(version_info()))
+        if path == "/metrics":
+            return (200, "text/plain; version=0.0.4", self.registry.render())
+        if path == "/debug/queryz":
+            if self.tracer is None:
+                return (404, "text/plain", "no tracer wired\n")
+            body = json.dumps(
+                {
+                    "in_flight": self.tracer.in_flight(),
+                    "recent": self.tracer.recent(),
+                },
+                indent=1,
+                default=str,
+            )
+            return (200, "application/json", body)
+        for route, fn, missing in (
+            ("/debug/tablez", self.tablez_fn, "no table stats wired\n"),
+            ("/debug/cachez", self.cachez_fn, "no result cache wired\n"),
+            ("/debug/busz", self.busz_fn, "no bus stats wired\n"),
+        ):
+            if path == route:
+                if fn is None:
+                    return (404, "text/plain", missing)
+                return (200, "application/json",
+                        json.dumps(fn(), indent=1, default=str))
+        if path.startswith("/debug/tracez/"):
+            path = "/debug/tracez"
+        if path in _UNWIRED:
+            return (404, "text/plain", _UNWIRED[path])
+        return (404, "text/plain", "not found\n")
+
+    def start(self, port: int = 0, host: str = "127.0.0.1") -> int:
+        """Serve on a background thread; returns the bound port."""
+        obs = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (stdlib casing)
+                code, ctype, body = obs.handle(self.path)
+                data = body.encode()
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *a):  # silence per-request stderr noise
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        t = threading.Thread(
+            target=self._httpd.serve_forever, name="observability", daemon=True
+        )
+        t.start()
+        return self._httpd.server_address[1]
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+
+
+#: torch allocator counters exported per device as
+#: ``pixie_device_memory_bytes{device,kind}`` (the JAX package's kinds
+#: where the allocator has one).
+_MEM_KINDS = (
+    ("bytes_in_use", "allocated_bytes.all.current"),
+    ("peak_bytes_in_use", "allocated_bytes.all.peak"),
+    ("bytes_reserved", "reserved_bytes.all.current"),
+)
+
+
+def engine_collector(engine):
+    """Collector exporting an engine's table + device-cache stats and its
+    card's allocator counters (table_metrics.h / pem_manager.h:63
+    node-memory gauges analog)."""
+
+    def collect(reg: MetricsRegistry) -> None:
+        import time as _time
+
+        import torch
+
+        from ..config import get_flag
+        from ..table_store.device_cache import total_resident_bytes
+
+        g_rows = reg.gauge("pixie_table_rows", "Rows resident per table")
+        # tier label: "hot" = ring bytes, "cold" = encoded cold-store
+        # bytes. Untiered tables report only tier="hot" (their whole
+        # ring), so sum-over-tiers is always total resident bytes.
+        g_bytes = reg.gauge(
+            "pixie_table_bytes", "Bytes resident per table and tier"
+        )
+        g_demote = reg.gauge(
+            "pixie_cold_demotions_total",
+            "Windows demoted hot->cold per table (pxtier)",
+        )
+        g_evict = reg.gauge(
+            "pixie_cold_evictions_total",
+            "Cold windows evicted (true expiry) per table",
+        )
+        g_decode = reg.gauge(
+            "pixie_cold_decode_seconds_total",
+            "Seconds spent decoding cold windows per table",
+        )
+        g_rows_t = reg.gauge(
+            "pixie_table_rows_total", "Rows ever appended per table"
+        )
+        g_bytes_t = reg.gauge(
+            "pixie_table_bytes_total", "Bytes ever appended per table"
+        )
+        g_exp_t = reg.gauge(
+            "pixie_table_expired_bytes_total",
+            "Bytes dropped by ring expiry per table",
+        )
+        g_lag = reg.gauge(
+            "pixie_table_watermark_lag_seconds",
+            "Now minus the max event-time watermark per table "
+            "(ingest staleness; absent without a time index)",
+        )
+        now_ns = _time.time_ns()
+        for name, t in engine.tables.items():
+            if t is None:
+                continue
+            st = t.stats()
+            g_rows.labels(table=name).set(st.num_rows)
+            if getattr(t, "_tier", None) is not None:
+                g_bytes.labels(table=name, tier="hot").set(st.hot_bytes)
+                g_bytes.labels(table=name, tier="cold").set(st.cold_bytes)
+                g_demote.labels(table=name).set(st.demotions)
+                g_evict.labels(table=name).set(st.evictions)
+                g_decode.labels(table=name).set(
+                    round(st.decode_seconds, 6)
+                )
+            else:
+                g_bytes.labels(table=name, tier="hot").set(st.bytes)
+            g_rows_t.labels(table=name).set(st.rows_added)
+            g_bytes_t.labels(table=name).set(st.bytes_added)
+            g_exp_t.labels(table=name).set(st.bytes_expired)
+            if st.watermark >= 0:
+                g_lag.labels(table=name).set(
+                    round((now_ns - st.watermark) / 1e9, 3)
+                )
+        reg.gauge(
+            "pixie_device_cache_bytes",
+            "Device-resident window bytes (all tables)",
+        ).set(total_resident_bytes())
+        # Window-prefetch pipeline (exec/pipeline.py) lifetime totals.
+        pt = engine.pipeline_totals
+        reg.gauge(
+            "pixie_pipeline_depth",
+            "Configured window-prefetch depth (1 = serial)",
+        ).set(engine.pipeline_depth or get_flag("pipeline_depth"))
+        reg.gauge(
+            "pixie_pipeline_windows_total",
+            "Windows executed through the window pipeline",
+        ).set(pt["windows"])
+        reg.gauge(
+            "pixie_pipeline_stage_seconds_total",
+            "Prefetch-thread seconds spent staging windows",
+        ).set(round(pt["stage_secs"], 6))
+        reg.gauge(
+            "pixie_pipeline_stall_seconds_total",
+            "Query-thread seconds stalled waiting for a window",
+        ).set(round(pt["stall_secs"], 6))
+        # The card's allocator: what this process holds on the device.
+        if engine.device.type == "cuda":
+            g_mem = reg.gauge(
+                "pixie_device_memory_bytes",
+                "torch.cuda.memory_stats() snapshot of the engine's card",
+            )
+            stats = torch.cuda.memory_stats(engine.device)
+            for kind, key in _MEM_KINDS:
+                g_mem.labels(device=str(engine.device), kind=kind).set(
+                    stats.get(key, 0)
+                )
+
+    return collect

@@ -1598,6 +1598,22 @@ class QueryBroker:
 
     # -- bus API (the VizierService gRPC surface analog) ---------------------
 
+    def busz(self) -> dict:
+        """Cluster transport snapshot for ``/debug/busz``: the
+        tracker's per-agent + merged heartbeat bus summaries, plus this
+        broker process's own bus (deploy adds the BusServer's
+        per-connection wire accounting on top)."""
+        t = self.tracker.bus_stats()
+        out = {
+            "scope": "cluster",
+            "agents": t["agents"],
+            "merged": t["merged"],
+        }
+        local = getattr(self.bus, "busz", None)
+        if local is not None:
+            out["local"] = local()
+        return out
+
     def serve(self) -> None:
         """Expose the broker on bus topics so remote clients (CLI/API over
         the framed-TCP netbus) can execute scripts and introspect the

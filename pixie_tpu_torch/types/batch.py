@@ -48,6 +48,9 @@ class HostBatch:
     cols: dict[str, Planes]
     length: int
     dicts: dict[str, StringDictionary] = field(default_factory=dict)
+    # Stream markers (reference: eow/eos on RowBatch).
+    eow: bool = False
+    eos: bool = False
 
     @classmethod
     def from_pydict(

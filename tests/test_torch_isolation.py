@@ -4,9 +4,13 @@ query through every module of the window path (device cache, sketches,
 zone skipping, pipeline), the group-by over UINT128 keys (the hash
 form, the ``any`` UDA) and a windowed radix join leaves neither in
 ``sys.modules``, neither does a query through a CPU cluster of agents
-(bus, tracker, PEMs, Kelvin, broker, bridges), and nothing falls back to
-the CPU or to a plain version on its own: an engine or an agent built
-without an engine raises when there is no card."""
+(bus, tracker, PEMs, Kelvin, broker, bridges), neither does a query
+through PEMs on the framed-TCP netbus with the entry points' modules
+(wire, netbus, ingest, deploy, cli, api, observability, cron runner)
+loaded, and nothing falls back to the CPU or to a plain version on its
+own: an engine or an agent built without an engine raises when there is
+no card, and a deploy role or ``cli run --local`` started without a card
+and without ``PIXIE_TPU_TORCH_DEVICE`` exits non-zero."""
 
 import ast
 import os
@@ -187,6 +191,82 @@ print("ok")
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_entry_points_load_neither_jax_nor_the_jax_package():
+    code = """
+import sys, time
+import numpy as np
+from pixie_tpu_torch import Engine
+from pixie_tpu_torch.cli import main as cli_main
+from pixie_tpu_torch.services import AgentTracker, MessageBus, PEMAgent
+from pixie_tpu_torch.services.netbus import BusServer, RemoteBus
+from pixie_tpu_torch.services.observability import ObservabilityServer
+import pixie_tpu_torch.api, pixie_tpu_torch.deploy
+import pixie_tpu_torch.services.crash, pixie_tpu_torch.services.tracepoints
+import pixie_tpu_torch.services.script_runner, pixie_tpu_torch.ingest
+import pixie_tpu_torch.planner.debug, pixie_tpu_torch.utils
+bus = MessageBus()
+server = BusServer(bus)
+tracker = AgentTracker(bus, expiry_s=60.0, check_interval_s=60.0)
+rb = RemoteBus("127.0.0.1", server.port)
+pem = PEMAgent(rb, "pem-0", heartbeat_interval_s=0.05,
+               engine=Engine(window_rows=1024, device="cpu"))
+try:
+    pem.start()
+    pem.append_data("t", {"time_": np.arange(300), "v": np.arange(300)})
+    pem._register()
+    deadline = time.monotonic() + 5
+    while "t" not in tracker.schemas() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert "t" in tracker.schemas()
+finally:
+    pem.stop()
+    rb.close()
+    tracker.close()
+    server.close()
+    bus.close()
+assert ObservabilityServer().handle("/healthz")[0] == 200
+assert cli_main(["script", "list"]) == 0
+for mod in ("services.wire", "services.netbus", "ingest.collector",
+            "ingest.connectors", "ingest.replay", "trace.spec", "exec.otel",
+            "utils.upid", "utils.datastore", "cli", "api", "deploy"):
+    assert "pixie_tpu_torch." + mod in sys.modules, mod
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("argv", [
+    ["pixie_tpu_torch.deploy", "broker"],
+    ["pixie_tpu_torch.deploy", "pem"],
+    ["pixie_tpu_torch.deploy", "kelvin"],
+    ["pixie_tpu_torch.cli", "run", "px/http_stats", "--local",
+     "--synthetic", "100"],
+], ids=["broker", "pem", "kelvin", "cli_run_local"])
+def test_entry_point_without_a_card_exits_non_zero(argv, tmp_path):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "PIXIE_TPU_TORCH_DEVICE")}
+    env.update(PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="",
+               PIXIE_TPU_BROKER="127.0.0.1:9", PIXIE_TPU_DIAL_TIMEOUT_S="0")
+    res = subprocess.run(
+        [sys.executable, "-m", *argv], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr, res.stderr
+    assert "PIXIE_TPU_TORCH_DEVICE=cpu" in res.stderr
 
 
 def test_agent_without_an_engine_raises_without_a_card(monkeypatch):
