@@ -3439,6 +3439,42 @@ class Cluster:
         self.bus.close()
 
 
+def cl_check(c, name: str, res, ref) -> None:
+    """One cluster answer against the single engine's (``ref`` from
+    ``cl_reference``; None for px/agent_status, held to the agents)."""
+    if ref is None:
+        (hb,) = res["tables"].values()
+        cl_check_agent_status(hb, [a.agent_id for a in c.agents])
+        return
+    ref, loose, ordered = ref
+    assert sorted(res["tables"]) == sorted(ref), name
+    for k in ref:
+        check_library_output(f"cluster {name}:{k}", res["tables"][k], ref[k],
+                             loose[k], ordered)
+    assert res["distributed_plan"].n_data_shards == len(c.pems)
+
+
+def cl_enable_telemetry(c) -> None:
+    """Self-telemetry on every agent's engine, as a deployed agent starts
+    it (the ``self_telemetry`` flag)."""
+    from pixie_tpu_torch.services import enable_self_telemetry
+
+    for a in c.agents:
+        a.telemetry = enable_self_telemetry(
+            a.engine, agent_id=a.agent_id,
+            kind="pem" if a.processes_data else "kelvin", bus=c.bus)
+
+
+def cl_enable_profiling(c) -> None:
+    """A self-sampling profiler on every agent's collector, as the
+    deployed roles run it (the ``self_profiling`` flag). In one process
+    each of the five samples every thread of the process."""
+    from pixie_tpu_torch.ingest.profiler import PerfProfilerConnector
+
+    for a in c.agents:
+        a.collector.register_source(PerfProfilerConnector(pod=a.agent_id))
+
+
 def phase_cluster(eng, replay, device, window: int = WINDOW,
                   quarter: int = CL_QUARTER, turns: int = CL_TURNS,
                   profile: bool = True) -> dict:
@@ -3447,12 +3483,19 @@ def phase_cluster(eng, replay, device, window: int = WINDOW,
     PEMs as contiguous quarters (each in its own dictionary order); each
     script runs through ``broker.execute_script`` (a warm-up, ``turns``
     timed turns) and is held to the single engine ``eng``'s answer over
-    the same rows; then one PEM dies and is expired, the next
-    px/service_stats replans onto 3 PEMs (held to numpy over their
-    quarters), and a live px/service_stats over the 3 with one more
-    window appended on each ends at the one-shot answer. Returns the
-    kernels' launches per PEM and in total."""
-    c = Cluster(device, window=window)
+    the same rows, first with the agents' self-telemetry and profilers
+    off, then with self-telemetry, then with both (as deployed agents
+    run): the A/B of their cost. Then
+    one PEM dies and is expired, the next px/service_stats replans onto
+    3 PEMs (held to numpy over their quarters), and a live
+    px/service_stats over the 3 with one more window appended on each
+    ends at the one-shot answer. Returns the kernels' launches per PEM
+    and in total."""
+    from pixie_tpu_torch.config import override_flag
+
+    with override_flag("self_telemetry", False), \
+            override_flag("self_profiling", False):
+        c = Cluster(device, window=window)
     out = {}
     try:
         t0 = time.perf_counter()
@@ -3469,27 +3512,31 @@ def phase_cluster(eng, replay, device, window: int = WINDOW,
                           "resident_bytes": resident}))
         if device.type == "cuda":
             assert resident == [quarter * ROW_BYTES] * len(c.pems), resident
+        refs = {name: None if name == "px/agent_status"
+                else cl_reference(eng, name) for name in CL_SCRIPTS}
+        # The agents' self-observability, turned on step by step: off,
+        # then self-telemetry, then the profilers too (as deployed
+        # agents run; the phase's main numbers).
+        ab = {}
+        for variant in ("off", "telemetry"):
+            if variant == "telemetry":
+                cl_enable_telemetry(c)
+            for name in CL_SCRIPTS:
+                cl_query(c, name)  # warm-up
+                secs = []
+                for _ in range(turns):
+                    rec = cl_query(c, name)
+                    cl_check(c, name, rec["res"], refs[name])
+                    secs.append(rec["secs"])
+                ab.setdefault(name, {})[variant] = secs
+        cl_enable_profiling(c)
         for name in CL_SCRIPTS:
-            if name == "px/agent_status":
-                ref = None
-            else:
-                ref, loose, ordered = cl_reference(eng, name)
             cl_query(c, name)  # warm-up
             _zero_launches()
             recs = []
             for _ in range(turns):
                 recs.append(cl_query(c, name))
-                res = recs[-1]["res"]
-                if ref is None:
-                    (hb,) = res["tables"].values()
-                    cl_check_agent_status(hb, [a.agent_id for a in c.agents])
-                    continue
-                assert sorted(res["tables"]) == sorted(ref), name
-                for k in ref:
-                    check_library_output(f"cluster {name}:{k}",
-                                         res["tables"][k], ref[k], loose[k],
-                                         ordered)
-                assert res["distributed_plan"].n_data_shards == len(c.pems)
+                cl_check(c, name, recs[-1]["res"], refs[name])
             launches = cl_launches(c)
             kernel = CL_KERNEL_OF.get(name)
             if kernel is not None and device.type == "cuda":
@@ -3513,6 +3560,15 @@ def phase_cluster(eng, replay, device, window: int = WINDOW,
             if profile and device.type == "cuda":
                 rec.update(busy_share(lambda: cl_query(c, name)))
             print(json.dumps(rec))
+        print(json.dumps({
+            "phase": "cluster_telemetry_ab", "turns": turns,
+            "scripts": {n: {
+                "off_secs": float(np.median(ab[n]["off"])),
+                "telemetry_secs": float(np.median(ab[n]["telemetry"])),
+                "telemetry_profiling_secs": out["turns"][n]["secs"],
+                "off_turns": ab[n]["off"],
+                "telemetry_turns": ab[n]["telemetry"]}
+                for n in CL_SCRIPTS}}))
         live = cl_expiry_and_live(c, replay, window, quarter)
         if device.type == "cuda":
             assert live > 0, "the live query launched no hist_fold"
@@ -3707,10 +3763,13 @@ def pem_worker(argv) -> int:
     appends its quarter [I * QUARTER, (I + 1) * QUARTER) in the order of
     its own dictionaries (``cl_batches``, as the cluster phase deals
     them), starts a PEMAgent on a RemoteBus to the broker's BusServer at
-    PORT, and answers ``smoke.pem-I.ctl`` requests: ``zero`` sets the
-    kernels' launch counters to 0, ``read`` returns them with the bytes
-    the torch allocator holds on the card. It prints one JSON line when it serves and one with
-    its counts when it ends (SIGTERM, or its parent gone)."""
+    PORT (with self-telemetry and, as the deployed PEM role runs it, the
+    self-sampling profiler on its collector), and answers
+    ``smoke.pem-I.ctl`` requests: ``zero`` sets the kernels' launch
+    counters to 0, ``read`` returns them, their totals since the process
+    began (``lifetime``) and the bytes the torch allocator holds on the
+    card. It prints one JSON line when it serves and one with its counts
+    when it ends (SIGTERM, or its parent gone)."""
     import signal
     import threading
 
@@ -3718,7 +3777,9 @@ def pem_worker(argv) -> int:
 
     sys.path.insert(0, ROOT)
     from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.config import get_flag
     from pixie_tpu_torch.deploy import env_device
+    from pixie_tpu_torch.ingest.profiler import PerfProfilerConnector
     from pixie_tpu_torch.services.agent import PEMAgent
     from pixie_tpu_torch.services.netbus import RemoteBus
 
@@ -3744,14 +3805,23 @@ def pem_worker(argv) -> int:
     del replay
     bus = RemoteBus("127.0.0.1", port)
 
+    lifetime = {"dense_fold": 0, "hist_fold": 0}  # launches before zeroing
+
     def on_ctl(msg):
         if msg.get("op") == "zero":
+            for k, n in _launch_counts().items():
+                lifetime[k] += n
             _zero_launches()
-        bus.publish(msg["_reply_to"], {"launches": _launch_counts(),
-                                       "reserved_bytes": reserved()})
+        now = _launch_counts()
+        bus.publish(msg["_reply_to"], {
+            "launches": now,
+            "lifetime": {k: lifetime[k] + n for k, n in now.items()},
+            "reserved_bytes": reserved()})
 
     bus.subscribe(f"smoke.{aid}.ctl", on_ctl)
     pem = PEMAgent(bus, aid, engine=eng, heartbeat_interval_s=CL_HEARTBEAT_S)
+    if get_flag("self_profiling"):
+        pem.collector.register_source(PerfProfilerConnector(pod=aid))
     pem.start()
     print(json.dumps({"worker": aid, "serving": True, "append_s": append_s,
                       "resident_bytes":
@@ -3809,7 +3879,7 @@ def pr_query(broker, name: str, kelvin_obs: int, timeout_s: float = 120.0):
         (t["usage"].get("device_peak_bytes") or 0 for t in merges),
         default=None)
     return {
-        "res": res, "secs": secs,
+        "res": res, "secs": secs, "trace_id": broker.tracer.last().trace_id,
         "slowest_fragment_s": max(frags.values()) if frags else 0.0,
         "fragments_s": frags,
         "merge_s": (max(t["duration_ms"] for t in merges) / 1e3
@@ -3818,6 +3888,142 @@ def pr_query(broker, name: str, kelvin_obs: int, timeout_s: float = 120.0):
         "wire_bytes": sum(int(st["usage"]["wire_bytes"])
                           for st in res["agent_stats"].values()),
     }
+
+
+#: The shipped scripts that read the agents' self-telemetry tables.
+PR_TELEMETRY_SCRIPTS = (
+    "px/program_cost",  # first: before the others' own kernel launches
+    "px/agent_health", "px/bound_accuracy", "px/bus_health",
+    "px/cache_stats", "px/flame_diff", "px/ingest_lag", "px/query_cost",
+    "px/query_cpu", "px/rpc_latency", "px/slow_queries", "px/table_health",
+    "px/tenant_cpu",
+)
+PR_TELEMETRY_TABLES = ("__queries__", "__spans__", "__agents__",
+                       "__programs__", "__tables__", "__bus__", "__stacks__")
+PR_FRAGMENT_HASHES = """import px
+df = px.DataFrame(table='__queries__')
+df = df[df.kind == 'fragment']
+df = df.groupby(['qid', 'script_hash', 'agent_id']).agg(
+    n=('rows_out', px.count))
+px.display(df)
+"""
+
+
+def pr_trace_split(obs_port: int, trace_id: str, participants: int,
+                   timeout_s: float = 30.0) -> dict:
+    """One distributed query's split from the broker's
+    ``/debug/tracez/<id>``, once every participant's spans are in:
+    compile (the broker's compile span), plan (compile's end to the
+    dispatch span: distributed planning, predicted cost, admission and
+    registration), dispatch (the dispatch span), the slowest PEM
+    fragment and the Kelvin's merge (the agents' root spans under the
+    dispatch span: the merge is the one that starts after every other
+    ends), in ms."""
+    import urllib.error
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            _, body = pr_scrape(obs_port, f"/debug/tracez/{trace_id}")
+            one = json.loads(body)
+            if len(one["agents"]) >= participants:
+                break
+        except urllib.error.HTTPError:
+            pass
+        assert time.monotonic() < deadline, f"trace {trace_id} incomplete"
+        time.sleep(0.05)
+    spans = one["spans"]
+
+    def ms(sp):
+        return (sp["end_unix_nano"] - sp["start_unix_nano"]) / 1e6
+
+    root = next(sp for sp in spans if not sp["parent_id"])
+    compile_ = next(sp for sp in spans if sp["name"] == "compile"
+                    and sp["parent_id"] == root["span_id"])
+    dispatch = next(sp for sp in spans if sp["name"] == "dispatch")
+    roots = sorted((sp for sp in spans
+                    if sp["parent_id"] == dispatch["span_id"]),
+                   key=lambda sp: sp["start_unix_nano"])
+    merge, frags = roots[-1], roots[:-1]
+    assert len(roots) == participants - 1, (len(roots), participants)
+    assert merge["start_unix_nano"] >= max(
+        sp["end_unix_nano"] for sp in frags), "merge began before a fragment"
+    return {
+        "query_ms": ms(root), "compile_ms": ms(compile_),
+        "plan_ms": (dispatch["start_unix_nano"]
+                    - compile_["end_unix_nano"]) / 1e6,
+        "dispatch_ms": ms(dispatch),
+        "slowest_fragment_ms": max(ms(sp) for sp in frags),
+        "merge_ms": ms(merge),
+        "agents": one["agents"],
+    }
+
+
+def pr_telemetry(broker, tracker, pems, ctl: dict, data_qids: dict,
+                 kernels: bool, timeout_s: float = 60.0) -> dict:
+    """The 13 telemetry scripts through the broker over the PEM
+    processes' own tables, each checked: px/slow_queries and
+    px/query_cost hold every data script's fragment hash (the hash of
+    each phase query's PEM fragments, read from ``__queries__`` by qid)
+    on every PEM; px/program_cost lists dense_fold and hist_fold (when
+    ``kernels``: the PEMs run on the card) with hits equal to the
+    largest PEM process's launches since it began (``ctl``'s
+    ``lifetime``, read before these scripts launch any);
+    px/table_health, px/bus_health and px/agent_health have a row per
+    PEM; px/query_cpu has samples. Returns each script's seconds and
+    rows."""
+    from pixie_tpu_torch.scripts import load_script
+
+    def tel_ready():
+        return set(PR_TELEMETRY_TABLES) <= set(tracker.schemas())
+
+    deadline = time.monotonic() + timeout_s
+    while not tel_ready():
+        assert time.monotonic() < deadline, (
+            "telemetry tables never registered",
+            sorted(set(PR_TELEMETRY_TABLES) - set(tracker.schemas())))
+        time.sleep(0.1)
+    out, got = {}, {}
+    for name in PR_TELEMETRY_SCRIPTS:
+        t0 = time.perf_counter()
+        res = broker.execute_script(load_script(name).pxl, timeout_s=120.0,
+                                    max_output_rows=100_000)
+        (hb,) = res["tables"].values()
+        got[name] = hb.to_pydict()
+        out[name] = {"secs": time.perf_counter() - t0, "rows": hb.length}
+    frag = broker.execute_script(PR_FRAGMENT_HASHES, timeout_s=120.0,
+                                 max_output_rows=100_000)
+    d = frag["tables"]["output"].to_pydict()
+    hashes: dict = {}
+    for q, h, a in zip(d["qid"], d["script_hash"], d["agent_id"]):
+        hashes.setdefault(q, set()).add((h, a))
+    for name, qids in data_qids.items():
+        for q in qids:
+            pairs = hashes.get(q, set())
+            assert {a for _h, a in pairs} == set(pems), (name, q, pairs)
+            (h,) = {h for h, _a in pairs}
+            assert h in set(got["px/slow_queries"]["script_hash"]), (name, h)
+            cost = set(zip(got["px/query_cost"]["script_hash"],
+                           got["px/query_cost"]["agent_id"]))
+            assert {(h, p) for p in pems} <= cost, (name, h)
+    pc = got["px/program_cost"]
+    for k in ("dense_fold", "hist_fold") if kernels else ():
+        rows = [i for i, lab in enumerate(pc["label"]) if lab == k]
+        assert len(rows) == 1, (k, pc["label"])
+        want = max(ctl[p]["lifetime"][k] for p in pems)
+        assert int(pc["hits"][rows[0]]) == want > 0, (k, pc["hits"][rows[0]],
+                                                       want)
+        out["px/program_cost"][f"{k}_launches"] = want
+    th = got["px/table_health"]
+    i = list(th["table"]).index("http_events")
+    assert int(th["agents"][i]) == len(pems), th["agents"]
+    for name in ("px/bus_health", "px/agent_health"):
+        assert set(got[name]["agent_id"]) == set(pems), (
+            name, set(got[name]["agent_id"]))
+    qc = got["px/query_cpu"]
+    assert len(qc["samples"]) and int(np.sum(qc["samples"])) > 0, qc
+    out["px/query_cpu"]["samples"] = int(np.sum(qc["samples"]))
+    return out
 
 
 def netbus_rtt(sizes=(1 << 10, 1 << 16, 1 << 20), n: int = 30) -> dict:
@@ -3881,8 +4087,10 @@ def phase_processes(eng, replay, device, in_process: dict,
     their quarters. Returns each kernel's launches per PEM process."""
     import torch
 
+    from pixie_tpu_torch.exec.programs import default_program_registry
     from pixie_tpu_torch.services import AgentTracker, MessageBus, QueryBroker
     from pixie_tpu_torch.services.netbus import BusServer
+    from pixie_tpu_torch.services.observability import ObservabilityServer
 
     refs = {n: cl_reference(eng, n) for n in CL_SCRIPTS
             if n != "px/agent_status"}
@@ -3893,7 +4101,7 @@ def phase_processes(eng, replay, device, in_process: dict,
     server = BusServer(bus)
     tracker = AgentTracker(bus, expiry_s=PR_EXPIRY_S, check_interval_s=0.25)
     kids = Children("processes")
-    broker, out, rcs = None, {}, {}
+    broker, obs, out, rcs = None, None, {}, {}
     try:
         for i, aid in enumerate(pems):
             kids.start(aid, [sys.executable, os.path.abspath(__file__),
@@ -3921,6 +4129,14 @@ def phase_processes(eng, replay, device, in_process: dict,
             assert all(w["resident_bytes"] == quarter * ROW_BYTES
                        for w in served.values()), served
         broker = QueryBroker(bus, tracker)
+        # The broker's HTTP surface, as the deployed broker role serves
+        # it: its stitched traces back /debug/tracez.
+        obs = ObservabilityServer(tracer=broker.tracer,
+                                  trace_view=broker.trace_view,
+                                  programs=default_program_registry())
+        obs_port = obs.start(0)
+        data_qids: dict = {}  # script -> the qids of its timed turns
+        splits: list = []  # px/service_stats' turns from /debug/tracez
         peaks: dict = {}  # process -> the largest query peak on the card
 
         def note_peaks(rec):
@@ -3945,6 +4161,10 @@ def phase_processes(eng, replay, device, in_process: dict,
                     assert sorted(d["agent_id"]) == sorted(pems + ["kelvin-0"])
                     continue
                 assert set(res["agent_stats"]) == set(pems), res["agent_stats"]
+                data_qids.setdefault(name, []).append(res["qid"])
+                if name == "px/service_stats":
+                    splits.append(pr_trace_split(
+                        obs_port, recs[-1]["trace_id"], len(pems) + 2))
                 ref, loose, ordered = refs[name]
                 assert sorted(res["tables"]) == sorted(ref), name
                 for k in ref:
@@ -3976,6 +4196,20 @@ def phase_processes(eng, replay, device, in_process: dict,
                 ip.get("wire_bytes") == rec["wire_bytes"] if ip else None)
             rec["launches_per_pem"] = per_pem
             print(json.dumps(rec))
+        print(json.dumps({
+            "phase": "processes_trace_split", "script": "px/service_stats",
+            "source": "/debug/tracez", "turns": splits,
+            **{k: float(np.median([sp[k] for sp in splits]))
+               for k in ("query_ms", "compile_ms", "plan_ms", "dispatch_ms",
+                         "slowest_fragment_ms", "merge_ms")}}))
+        # The agents' own telemetry, queried as a user would.
+        t0 = time.perf_counter()
+        tel = pr_telemetry(broker, tracker, pems, ctl, data_qids,
+                           kernels=device.type == "cuda")
+        kids.check()
+        print(json.dumps({"phase": "processes_telemetry", "checked": True,
+                          "scripts": tel,
+                          "secs": time.perf_counter() - t0}))
         conns = server.busz()
         reserved = {p: ctl[p]["reserved_bytes"] for p in pems}
         _, metrics = pr_scrape(kelvin_obs, "/metrics")
@@ -4015,6 +4249,8 @@ def phase_processes(eng, replay, device, in_process: dict,
                           "pems": len(live), "secs": rec["secs"],
                           "wire_bytes": rec["wire_bytes"], "checked": True}))
     finally:
+        if obs is not None:
+            obs.stop()
         if broker is not None:
             broker.close()
         rcs = kids.close()
@@ -4053,9 +4289,10 @@ def phase_deploy(device) -> None:
     test; over the seq-gen rows with x < DP_SEQ_BOUND (one transfer per
     PEM, fixed once pushed) the group-by's counts sum to the count of
     the same rows without it, run right after; ``cli agents`` lists both
-    PEMs and the Kelvin; ``api.Client.execute_script`` returns the CLI's
-    table through a record handler; the broker's ``/healthz`` and
-    ``/metrics`` answer 200. Every wait is bounded."""
+    PEMs and the Kelvin; ``cli profile`` names the broker's and both
+    PEMs' samplers; ``api.Client.execute_script`` returns the CLI's table
+    through a record handler; the broker's ``/healthz``, ``/metrics`` and
+    ``/debug/programz`` answer 200. Every wait is bounded."""
     from pixie_tpu_torch.api import Client, TableRecordHandler
 
     t_phase = time.perf_counter()
@@ -4129,6 +4366,13 @@ def phase_deploy(device) -> None:
                 DP_SEQ_BOUND * len(pems)), (rows, n_whole)
             agents = cli("agents", "--broker", addr)
             assert all(a in agents for a in pems + ["kelvin-deploy"]), agents
+            # The cluster's CPU profile: the broker's own sampler and the
+            # PEMs' heartbeat summaries.
+            prof = json.loads(cli("profile", "--broker", addr, "-o", "json"))
+            assert {"broker", *pems} <= set(prof["agents"]), prof["agents"]
+            assert prof["stacks"], "px profile returned no stacks"
+            timings["profile"] = {"agents": prof["agents"],
+                                  "stacks": len(prof["stacks"])}
 
             class Recorder(TableRecordHandler):
                 def __init__(self):
@@ -4145,6 +4389,11 @@ def phase_deploy(device) -> None:
         for path in ("/healthz", "/metrics"):
             code, _body = pr_scrape(obs, path)
             assert code == 200, (path, code)
+        code, body = pr_scrape(obs, "/debug/programz")
+        assert code == 200, code
+        pz = json.loads(body)
+        timings["programz"] = {k: pz[k] for k in ("count", "hits",
+                                                   "compiles", "compile_ms")}
         kids.check()
     finally:
         rcs = kids.close()
@@ -4152,7 +4401,10 @@ def phase_deploy(device) -> None:
     print(json.dumps({"phase": "deploy", "roles": ["broker"] + pems
                       + ["kelvin-deploy"], "checked": True,
                       "ready_s": timings.get("ready_s"),
-                      "cli_s": timings.get("cli_s"), "exit_codes": rcs,
+                      "cli_s": timings.get("cli_s"),
+                      "profile": timings.get("profile"),
+                      "broker_programz": timings.get("programz"),
+                      "exit_codes": rcs,
                       "secs": time.perf_counter() - t_phase}))
 
 

@@ -17,9 +17,8 @@ HostBatches and are surfaced row-wise through handlers or as pydicts.
         def handle_record(self, record): print(record)
     client.execute_script(pxl, handler_factory=lambda t: Printer())
 
-A port of the JAX package's ``api.py``. Not in this slice: the profile
-request (``services/telemetry.py``) and the broker-HA leader lookup
-(``services/broker_ha.py``).
+A port of the JAX package's ``api.py``. Not in this slice: the broker-HA
+leader lookup (``services/broker_ha.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ from typing import Callable, Optional
 #: surfaces a structured error instead.
 _IDEMPOTENT_TOPICS = frozenset({
     "broker.scripts", "broker.schemas", "broker.agents",
-    "broker.debug_queries",
+    "broker.debug_queries", "broker.profile",
 })
 
 
@@ -116,6 +115,25 @@ class Client:
         res = self._request("broker.debug_queries", {"limit": limit})
         return {"in_flight": res.get("in_flight", []),
                 "queries": res.get("queries", [])}
+
+    def profile(
+        self,
+        agent: str | None = None,
+        tenant: str | None = None,
+        script: str | None = None,
+        limit: int = 64,
+    ) -> dict:
+        """Cluster-merged folded-stack CPU profile from the broker
+        (agents' heartbeat summaries + the broker's own sampler) —
+        the `px profile` surface. Returns {"agents": [...], "stacks":
+        [{stack, count, qid, script_hash, tenant, phase}, ...]} with
+        optional agent / tenant / script-hash filters."""
+        res = self._request("broker.profile", {
+            "agent": agent or "", "tenant": tenant or "",
+            "script": script or "", "limit": limit,
+        })
+        return {"agents": res.get("agents", []),
+                "stacks": res.get("stacks", [])}
 
     def cancel_query(self, qid: str) -> bool:
         """Cooperatively cancel a running one-shot query (`px cancel`):

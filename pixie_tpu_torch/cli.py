@@ -13,14 +13,14 @@ Usage:
   python -m pixie_tpu_torch.cli explain px/http_stats
   python -m pixie_tpu_torch.cli tables|agents --broker HOST:PORT
   python -m pixie_tpu_torch.cli debug queries --broker HOST:PORT [-v]
+  python -m pixie_tpu_torch.cli profile --broker HOST:PORT [--diff A B]
   python -m pixie_tpu_torch.cli cancel QID --broker HOST:PORT
   python -m pixie_tpu_torch.cli docs
 
 A port of the JAX package's ``cli.py``. ``run --local`` runs its engine on
 the CUDA card unless ``PIXIE_TPU_TORCH_DEVICE`` names another device
 (``cpu`` for tests); without a card and without that variable it exits
-non-zero. ``profile`` waits for the telemetry slice
-(``services/telemetry.py``) and says so.
+non-zero.
 """
 
 from __future__ import annotations
@@ -380,14 +380,67 @@ def cmd_debug(args) -> int:
 
 
 def cmd_profile(args) -> int:
-    """`px profile`: cluster-merged CPU flames. Not in this slice of the
-    port: it reads the profiler's samples through services/telemetry.py."""
-    print(
-        "error: px profile is not in this slice of the port "
-        "(it needs services/telemetry.py and ingest/profiler.py)",
-        file=sys.stderr,
-    )
-    return 2
+    """`px profile`: cluster-merged CPU flames from the broker —
+    agents' heartbeat folded-stack summaries plus the broker's own
+    sampler, attributed with qid/script hash/tenant/phase. ``--diff A
+    B`` renders the per-frame differential profile between two script
+    hashes (services/telemetry.py profile_diff)."""
+    from .services.telemetry import profile_counts, profile_diff
+
+    with _client(args.broker) as client:
+        if args.diff:
+            base_hash, cmp_hash = args.diff
+            base = client.profile(
+                agent=args.agent, tenant=args.tenant,
+                script=base_hash, limit=4096,
+            )["stacks"]
+            cmp_ = client.profile(
+                agent=args.agent, tenant=args.tenant,
+                script=cmp_hash, limit=4096,
+            )["stacks"]
+            rows = profile_diff(
+                profile_counts(base), profile_counts(cmp_)
+            )[:args.limit]
+            if args.output == "json":
+                print(json.dumps(rows))
+                return 0
+            print(f"{'frame':48s} {'self Δ':>8s} {'self a':>7s} "
+                  f"{'self b':>7s} {'total Δ':>8s}")
+            for r in rows:
+                print(
+                    f"{r['frame'][:48]:48s} {r['self_delta']:>+8d} "
+                    f"{r['self_base']:>7d} {r['self_cmp']:>7d} "
+                    f"{r['total_delta']:>+8d}"
+                )
+            return 0
+        res = client.profile(
+            agent=args.agent, tenant=args.tenant,
+            script=args.script, limit=args.limit,
+        )
+    if args.output == "json":
+        print(json.dumps(res))
+        return 0
+    stacks = res["stacks"]
+    if not stacks:
+        print("no profile samples (is self_profiling on?)")
+        return 0
+    print(f"agents: {', '.join(res['agents']) or '-'}")
+    print(f"{'samples':>8s} {'tenant':8s} {'phase':12s} "
+          f"{'script':12s} stack (leaf last)")
+    for r in stacks:
+        stack = r["stack"]
+        if args.output == "collapsed":
+            print(f"{stack} {r['count']}")
+            continue
+        frames = stack.split(";")
+        tail = ";".join(frames[-3:]) if len(frames) > 3 else stack
+        print(
+            f"{r['count']:>8d} {r.get('tenant') or '-':8s} "
+            f"{r.get('phase') or '-':12s} "
+            f"{(r.get('script_hash') or '-')[:12]:12s} "
+            f"{'...' if len(frames) > 3 else ''}{tail}"
+        )
+    return 0
 
 
 def cmd_cancel(args) -> int:

@@ -373,3 +373,62 @@ define_flag(
     "class, service/lag times to the 'pixie_tpu_torch.slow_handler' "
     "logger and count in pixie_bus_slow_handlers_total; 0 disables.",
 )
+
+# -- device-tier observability (exec/programs.py) ----------------------------
+define_flag(
+    "program_registry_size", 512,
+    "Program registry capacity (exec/programs.py): records of what the "
+    "port binds and builds (fragment binds by structural key and input "
+    "schema, join drivers by shape, nvcc and g++ libraries), each with "
+    "its compile wall time and hit count, kept in an LRU; oldest "
+    "evicted. 0 disables tracking entirely.",
+)
+define_flag(
+    "device_memory_poll_s", 0.0,
+    "Background poll period of the card's allocator for per-query peak "
+    "device-memory attribution (QueryResourceUsage.device_peak_bytes). "
+    "0 disables the poll thread; peaks then come from the query "
+    "bracket alone. Gauges refresh at every /metrics scrape regardless.",
+)
+define_flag(
+    "admission_observed_floor", True,
+    "Broker admission control floors predicted_cost at the observed "
+    "per-script-hash bytes_staged history from finished query traces "
+    "(the __queries__ feedback loop): a sketch-less UNKNOWN prediction "
+    "with history is admitted against the observed bytes instead of "
+    "zero, and a known prediction below observed reality is raised to "
+    "it. Only matters while admission_bytes_budget_mb > 0.",
+)
+
+# -- self-observability (services/telemetry.py, ingest/profiler.py) ----------
+define_flag(
+    "self_telemetry", True,
+    "Agents fold their engine's finished query traces + resource "
+    "records into the __queries__/__spans__/__agents__ tables "
+    "(PxL-queryable through the normal engine path) and publish "
+    "distributed-trace span summaries for the broker's /debug/tracez.",
+)
+define_flag(
+    "telemetry_table_mb", 8,
+    "Per-table byte budget (MB) for the self-telemetry tables; each "
+    "table's ring expires its own oldest rows at the budget.",
+)
+define_flag(
+    "self_profiling", True,
+    "Deploy roles run the self-sampling perf profiler "
+    "(ingest/profiler.py): agents AND the broker fold their own "
+    "Python stacks — attributed with {qid, script_hash, tenant, "
+    "phase} from the thread attribution registry — into the "
+    "__stacks__ telemetry ring (px/query_cpu / px/tenant_cpu) plus "
+    "the anonymous stack_traces.beta aggregate "
+    "(px/perf_flamegraph), and serve merged flames via "
+    "/debug/pprof + /debug/flamez. Off = no sampling thread work "
+    "at all.",
+)
+define_flag(
+    "profile_summary_stacks", 512,
+    "Per-profiler cap on distinct (stack, attribution) keys kept in "
+    "the cumulative folded-stack summary that heartbeats ship for "
+    "cluster merge; over the cap the coldest stacks age out "
+    "(hottest-kept eviction, counts stay monotonic for survivors).",
+)

@@ -16,10 +16,13 @@ statusz/metrics.
 A port of the JAX package's ``deploy.py``. Every role runs on the CUDA
 card; ``PIXIE_TPU_TORCH_DEVICE`` names another device (``cpu`` for tests
 and development). Without a card and without that variable a role exits
-non-zero with the engine's error; nothing carries on on the CPU. Not in
-this slice, and refused when asked for: broker HA
-(``PIXIE_TPU_BROKER_HA``), the operator role, self-profiling
-(``PIXIE_TPU_SELF_PROFILING``) and lockdep (``PIXIE_TPU_LOCKDEP``).
+non-zero with the engine's error; nothing carries on on the CPU. Every
+role samples its own stacks under the ``self_profiling`` flag
+(``PIXIE_TPU_SELF_PROFILING``, on by default) and serves them at
+``/debug/pprof`` and ``/debug/flamez``; agents fold self-telemetry under
+``self_telemetry``. Not in this slice, and refused when asked for:
+broker HA (``PIXIE_TPU_BROKER_HA``), the operator role and lockdep
+(``PIXIE_TPU_LOCKDEP``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ DEVICE_ENV = "PIXIE_TPU_TORCH_DEVICE"
 #: of the port: {environment variable: what it asks for}.
 _LATER_SLICES = {
     "PIXIE_TPU_BROKER_HA": "broker HA (services/broker_ha.py)",
-    "PIXIE_TPU_SELF_PROFILING": "self-profiling (ingest/profiler.py)",
     "PIXIE_TPU_LOCKDEP": "lockdep (analysis/lockdep.py)",
 }
 
@@ -79,15 +81,34 @@ def run_broker() -> int:
     runner.run_forever()
     netbus_port = int(os.environ.get("PIXIE_TPU_NETBUS_PORT", "6100"))
     server = BusServer(bus, host="0.0.0.0", port=netbus_port)
-    obs = ObservabilityServer(
-        statusz_fn=lambda: {
+    # Broker self-profiling (self_profiling flag): the broker has no
+    # agent engine, so its attributed stacks land in a process-local
+    # TableStore, and merge into /debug/pprof and /debug/flamez through
+    # broker.profile_rows (agent_id "broker").
+    prof_store, prof_coll = _self_profiler("broker")
+
+    def statusz():
+        out = {
             "agents": tracker.agents_info(),
             "tables": sorted(tracker.schemas()),
             "quarantined": tracker.quarantined(),
-        },
+        }
+        if prof_coll is not None:
+            beta = prof_store.get_table("stack_traces.beta")
+            out["profiler"] = {
+                "stacks": beta.num_rows if beta is not None else 0,
+                "collector": dict(prof_coll.stats),
+            }
+        return out
+
+    obs = ObservabilityServer(
+        statusz_fn=statusz,
         # Broker-side distributed-query traces (dispatch/retry/failover
-        # spans) back /debug/queryz on this role.
+        # spans) back /debug/queryz on this role; the cluster-stitched
+        # view (broker + agent spans per trace id) backs /debug/tracez.
         tracer=broker.tracer,
+        trace_view=broker.trace_view,
+        programs=_program_registry(),
         # Cluster-merged storage-tier snapshot: watermark = max across
         # agents, counters summed, per-agent lag spread.
         tablez_fn=lambda: {
@@ -95,6 +116,10 @@ def run_broker() -> int:
             "tables": tracker.table_freshness(),
         },
         cachez_fn=broker.result_cache.cachez,
+        # Profiling tier: cluster-merged CPU flames (agents' heartbeat
+        # summaries + the broker's own sampler) back /debug/pprof and
+        # /debug/flamez.
+        profilez_fn=broker.profile_rows,
         # Transport tier: cluster-merged agent bus summaries + the
         # broker's local bus + the BusServer's per-connection wire
         # accounting.
@@ -109,6 +134,8 @@ def run_broker() -> int:
     )
     _wait_forever()
     runner.stop()
+    if prof_coll is not None:
+        prof_coll.stop()
     obs.stop()
     server.close()
     broker.tracepoints.close()
@@ -152,6 +179,7 @@ def _engine():
 
 
 def run_pem() -> int:
+    from .config import get_flag
     from .ingest.connectors import (
         NetworkStatsConnector,
         PIDRuntimeConnector,
@@ -175,6 +203,10 @@ def run_pem() -> int:
     coll.register_source(ProcExitConnector())
     coll.register_source(NetworkStatsConnector(pod=_agent_id("pem")))
     coll.register_source(StirlingErrorConnector())
+    if get_flag("self_profiling"):
+        from .ingest.profiler import PerfProfilerConnector
+
+        coll.register_source(PerfProfilerConnector(pod=agent.agent_id))
     if os.environ.get("PIXIE_TPU_SEQGEN"):
         coll.register_source(SeqGenConnector())
     agent.start()
@@ -189,12 +221,22 @@ def run_pem() -> int:
 
 
 def run_kelvin() -> int:
+    from .config import get_flag
     from .services.agent import KelvinAgent
 
     engine = _engine()
     host, port = _broker_addr()
     bus = _dial_broker(host, port)
     agent = KelvinAgent(bus, _agent_id("kelvin"), engine=engine).start()
+    if get_flag("self_profiling"):
+        # The kelvin's own collector thread (Agent.start ran it) drains
+        # the profiler into its local tables: merge-tier stacks are
+        # queryable through the agent's own engine.
+        from .ingest.profiler import PerfProfilerConnector
+
+        agent.collector.register_source(
+            PerfProfilerConnector(pod=agent.agent_id)
+        )
     obs = _agent_obs(agent)
     print(
         f"[kelvin] {agent.agent_id} -> {host}:{port} obs :{obs.port} "
@@ -215,8 +257,8 @@ def _agent_obs(agent, extra=None):
     """healthz/statusz/metrics/queryz for an agent process; returns the
     started server (its ``port`` attribute is the bound port). The
     engine's tracer backs /debug/queryz and the query-latency
-    histograms; the engine collector refreshes table/cache/pipeline and
-    device-memory gauges at each scrape."""
+    histograms; the engine collector refreshes table/cache/pipeline
+    gauges at each scrape, the device-memory monitor the card's."""
     from .services.observability import (
         ObservabilityServer,
         default_registry,
@@ -236,6 +278,8 @@ def _agent_obs(agent, extra=None):
     default_registry.register_collector(engine_collector(agent.engine))
     obs = ObservabilityServer(
         statusz_fn=statusz, tracer=agent.engine.tracer,
+        # The process program registry backs /debug/programz.
+        programs=_program_registry(),
         # Storage tier: this agent's local freshness snapshot (the
         # broker's /debug/tablez serves the cluster merge).
         tablez_fn=lambda: {
@@ -248,6 +292,8 @@ def _agent_obs(agent, extra=None):
             **agent.engine.result_cache.cachez(),
             "views": agent.engine.views.viewz(),
         },
+        # This agent's own flames (the broker serves the cluster merge).
+        profilez_fn=_local_profilez(agent.agent_id),
         # Transport tier: this agent's RemoteBus — frames/RTT to the
         # broker plus its subscription queue state.
         busz_fn=lambda: {
@@ -258,6 +304,53 @@ def _agent_obs(agent, extra=None):
     )
     obs.port = obs.start(int(os.environ.get("PIXIE_TPU_OBS_PORT", "0")))
     return obs
+
+
+def _local_profilez(own_agent_id: str):
+    """profilez_fn over this process's profiler roster, filtered to one
+    agent's samples (plus the handler's tenant/script filters)."""
+    def fn(agent_id=None, tenant=None, script_hash=None):
+        from .ingest.profiler import profile_summary
+
+        rows = profile_summary(agent_id=agent_id or own_agent_id, top=0)
+        return [
+            r for r in rows
+            if (tenant is None or r.get("tenant", "") == tenant)
+            and (script_hash is None
+                 or r.get("script_hash", "") == script_hash)
+        ]
+    return fn
+
+
+def _self_profiler(role: str):
+    """Broker-role self-profiling (``self_profiling`` flag): a
+    Collector + PerfProfilerConnector sampling this process into a
+    local TableStore (attributed ``__stacks__`` rows + the anonymous
+    ``stack_traces.beta`` aggregate). Returns (store, collector), or
+    (None, None) when the flag is off. The connector registers itself
+    in the profiler's roster, so its cumulative summary merges into
+    /debug/pprof through broker.profile_rows. Agent roles run their
+    profiler on the agent's own collector instead."""
+    from .config import get_flag
+
+    if not get_flag("self_profiling"):
+        return None, None
+    from .ingest.collector import Collector
+    from .ingest.profiler import PerfProfilerConnector
+    from .table_store import TableStore
+
+    store = TableStore()
+    coll = Collector()
+    coll.wire_to(store)
+    coll.register_source(PerfProfilerConnector(pod=role))
+    coll.run_as_thread()
+    return store, coll
+
+
+def _program_registry():
+    from .exec.programs import default_program_registry
+
+    return default_program_registry()
 
 
 def _wait_forever() -> None:

@@ -57,7 +57,12 @@ Every ``execute_plan`` runs under a query-lifecycle trace
 (``exec/trace.py``): its ``TraceStats`` is the query's ``QueryStats``
 (``exec/analyze.py``), each executed fragment gets a span, and the
 trace's ``usage`` (rows, windows, staged bytes, bridge bytes, the card's
-allocation peak) is what an agent reports with its fragment. A query's
+allocation peak from the device-memory monitor of ``exec/programs.py``)
+is what an agent reports with its fragment. An engine with a telemetry
+collector (``telemetry``, ``services/telemetry.py``; None on a bare
+engine) folds every finished trace into its own ``__queries__`` tables.
+A ``px.to_table`` sink appends its rows to the named table
+(``last_table_sinks``) and returns no client table. A query's
 cancel handle and stats travel as arguments, and the state its helpers
 read back (join decision, resource report) lives on a thread-local
 scratch, so an agent's one-shot fragment and its live query's poll run
@@ -124,6 +129,7 @@ from .plan import (
     MapOp,
     MemorySourceOp,
     ResultSinkOp,
+    TableSinkOp,
     UDTFSourceOp,
     UnionOp,
 )
@@ -176,11 +182,12 @@ class _QueryScratch:
     (thread-local on the engine), so queries on other threads never see
     it."""
 
-    __slots__ = ("join_decision", "resource_report")
+    __slots__ = ("join_decision", "resource_report", "table_sinks")
 
     def __init__(self, resource_report=None):
         self.join_decision = None
         self.resource_report = resource_report
+        self.table_sinks: dict = {}  # {table: rows} from TableSinkOps
 
 
 class Engine:
@@ -221,6 +228,8 @@ class Engine:
         # (analysis.bounds.PlanResourceReport, attached by compile_pxl),
         # None for a plan compiled without it.
         self._last_resource_report = None
+        # The last query's px.to_table writes, {table: rows}.
+        self._last_table_sinks: dict = {}
         # Query-lifecycle traces (exec/trace.py): every execute_plan gets
         # one; an agent reads its usage after each fragment.
         self.tracer = Tracer()
@@ -236,6 +245,20 @@ class Engine:
         # imports this one).
         self.result_cache = ResultCache()
         self._views = None
+        # Self-telemetry (services/telemetry.py TelemetryCollector): when
+        # attached, finished traces fold into the __queries__/__spans__
+        # tables and observed per-script cardinalities feed back into
+        # _compile_table_stats. None = off (a bare engine; agents and
+        # deploy roles wire it).
+        self.telemetry = None
+        # Device-tier observability (exec/programs.py): the shared
+        # device-memory monitor brackets every execute_plan, so the
+        # query's peak on the card lands in
+        # QueryResourceUsage.device_peak_bytes.
+        from .programs import default_device_monitor
+
+        self.device_memory = default_device_monitor()
+        self.device_memory.start()  # no-op unless device_memory_poll_s
 
     # -- per-query scratch ----------------------------------------------------
     @property
@@ -264,6 +287,15 @@ class Engine:
         if s is not None:
             return s.resource_report
         return self._last_resource_report
+
+    @property
+    def last_table_sinks(self) -> dict:
+        """{table: rows} written by the running query's ``px.to_table``
+        on its own thread, else by the last finished query's."""
+        s = self._scratch
+        if s is not None:
+            return s.table_sinks
+        return self._last_table_sinks
 
     @property
     def tables(self) -> dict:
@@ -441,8 +473,11 @@ class Engine:
         column, from sketches kept at append time (each call estimates
         every column's NDV afresh, as the JAX engine does), and for a
         tiered table the observed bytes per row of each tier, which seed
-        the bounds pass's staged and cold-decode bytes. The JAX engine's
-        observed-cardinality feedback is not in the port yet."""
+        the bounds pass's staged and cold-decode bytes. With telemetry
+        attached, the observed per-script output cardinalities of past
+        runs ride under ``__observed__`` (keyed by script hash), where
+        ``compile_pxl`` resolves the compiled script's entry for the
+        optimizer's join pre-aggregation sizing."""
         out: dict = {}
         # Snapshots (list(...)): appends on other threads add tables
         # and sketched columns while a query compiles.
@@ -475,6 +510,10 @@ class Engine:
                         if hr + cr else None
                     ),
                 }
+        if self.telemetry is not None:
+            obs = self.telemetry.observed()
+            if obs:
+                out["__observed__"] = obs
         return out
 
     def execute_plan(self, plan, bridge_inputs: dict | None = None,
@@ -519,14 +558,20 @@ class Engine:
         stats = trace.stats
         report = getattr(plan, "resource_report", None)
         scratch = _QueryScratch(resource_report=report)
+        # Predicted-vs-observed calibration: the plan's predicted cost
+        # rides the trace, so the telemetry fold records it next to the
+        # observed usage (px/bound_accuracy). The broker stamps its
+        # merged cost on its own trace instead.
+        if trace.predicted is None and report is not None:
+            from ..analysis.bounds import merged_cost
+
+            trace.predicted = merged_cost(report, None)
+        # The card's allocator peak over the query (exec/programs.py
+        # DeviceMemoryMonitor; None on the CPU).
+        mem_token = self.device_memory.query_begin(self.device)
         prev = self._scratch
         self._tls.scratch = scratch
         tm_token = threadmap.bind(trace=trace, phase="host")
-        cuda = self.device.type == "cuda"
-        if cuda:
-            # The allocator's high-water mark while the query ran (other
-            # queries on the same card in this process count too).
-            torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.perf_counter()
         try:
             return self._execute_plan(plan, stats, cancel, bridge_inputs)
@@ -538,14 +583,14 @@ class Engine:
             jd = scratch.join_decision
             if jd is not None:
                 trace.usage.retries += int(getattr(jd, "retries", 0))
-            if cuda:
-                trace.usage.device_peak_bytes = int(
-                    torch.cuda.max_memory_allocated(self.device)
-                )
+            peak = self.device_memory.query_end(mem_token)
+            if peak is not None:
+                trace.usage.device_peak_bytes = peak
             with self._state_lock:
                 self.last_stats = stats
                 self._last_join_decision = jd
                 self._last_resource_report = report
+                self._last_table_sinks = scratch.table_sinks
 
     @staticmethod
     def _plan_fingerprint(plan) -> int:
@@ -664,6 +709,13 @@ class Engine:
                 results[nid] = _union_host([mat_input(i) for i in node.inputs])
             elif isinstance(op, ResultSinkOp):
                 outputs[op.name] = mat_input(node.inputs[0])
+            elif isinstance(op, TableSinkOp):
+                # px.to_table: the rows land in the named table (created
+                # at the first write), where later queries read them. Not
+                # a client output; recorded on the engine.
+                hb = mat_input(node.inputs[0])
+                self.append_data(op.table, hb)
+                self.last_table_sinks[op.table] = hb.length
             elif isinstance(op, BridgeSinkOp):
                 payload = bridge_payload(
                     self, results[node.inputs[0]], stats, cancel

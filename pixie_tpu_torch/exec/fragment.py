@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -423,7 +424,51 @@ def compile_fragment(ops, input_relation, input_dicts, registry: Registry,
                      col_stats=None) -> CompiledFragment:
     """Compile a chain into a fragment. ``allow_dense=False`` sends every
     group-by through the sort/hash form, even over keys that have a
-    dense domain."""
+    dense domain. The bind is recorded in the process program registry
+    (``exec/programs.py``)."""
+    t0 = time.perf_counter()
+    frag = _bind_fragment(ops, input_relation, input_dicts, registry,
+                          device, allow_dense, col_stats)
+    _track_fragment(frag, ops, input_relation, allow_dense,
+                    time.perf_counter() - t0)
+    return frag
+
+
+def _track_fragment(frag, ops, input_relation, allow_dense: bool,
+                    bind_s: float) -> None:
+    """Record a fragment bind in the program registry: keyed by the
+    chain's structural key and the routing flags, with the input schema
+    as its shape signature. The first bind of a key is its compile
+    (``bind_s``), a repeated plan's bind a hit. Chains that do not hash
+    go untracked."""
+    from .programs import (default_program_registry, schema_repr,
+                           schema_signature)
+
+    preg = default_program_registry()
+    if not preg.enabled():
+        return
+    key = (
+        _struct_key(tuple(ops)),
+        allow_dense,
+        get_flag("groupby_impl"),
+        get_flag("dense_domain_limit"),
+        get_flag("int_dense_domain_limit"),
+    )
+    try:
+        hash(key)
+    except TypeError:
+        return
+    sig = schema_signature(input_relation)
+    label = ",".join(type(o).__name__ for o in ops) or "(scan)"
+    kinds = ("fragment_update", "fragment_finalize") if frag.is_agg else (
+        "fragment_update",)
+    for kind in kinds:
+        preg.observe(kind, key, label, sig, schema_repr(sig),
+                     compile_s=bind_s)
+
+
+def _bind_fragment(ops, input_relation, input_dicts, registry, device,
+                   allow_dense, col_stats) -> CompiledFragment:
     pre, agg, post, limit = _split_chain(list(ops))
     apply_pre, rel1, dicts1 = _bind_pre_stage(pre, input_relation, dict(input_dicts), registry)
     if agg is None:

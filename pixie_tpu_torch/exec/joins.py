@@ -532,6 +532,17 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _track_join(kind: str, key: tuple, label: str) -> None:
+    """Record one device join dispatch in the program registry
+    (``exec/programs.py``), keyed as the JAX drivers' programs are
+    (driver, bucketed shapes, capacity, how): the first dispatch of a
+    key is its compile, every later one a hit. Eager drivers compile
+    nothing, so the compile time is 0."""
+    from .programs import default_program_registry
+
+    default_program_registry().observe(kind, key, label)
+
+
 def _readback(out):
     """Copy one kernel output to the host in ONE transfer (the indices,
     the three masks packed as bits, and the overflow flag) and compact
@@ -638,6 +649,11 @@ def _join_device_windowed(left: HostBatch, right: HostBatch, op: JoinOp,
         starts_dev = _to_device(part_starts, device)
 
         def probe(pk_dev, pv_dev, cap):
+            _track_join(
+                "join_probe_radix",
+                ("radix", nb, wcap, cap, op.how, radix_bits, steps),
+                f"radix nb={nb} w={wcap} cap={cap} {op.how}",
+            )
             return radix_probe_join(sbk_dev, starts_dev, pk_dev, pv_dev, cap,
                                     op.how, radix_bits, steps)
     else:
@@ -646,6 +662,10 @@ def _join_device_windowed(left: HostBatch, right: HostBatch, op: JoinOp,
         sbk_dev = _to_device(sbk, device)
 
         def probe(pk_dev, pv_dev, cap):
+            _track_join(
+                "join_probe_sorted", ("sorted", nb, wcap, cap, op.how),
+                f"sorted nb={nb} w={wcap} cap={cap} {op.how}",
+            )
             return probe_sorted_join(sbk_dev, rb, pk_dev, pv_dev, cap, op.how)
 
     wcap = bucket_capacity(min(window_rows, n_probe))
@@ -891,6 +911,11 @@ def _join_device(left: HostBatch, right: HostBatch, op: JoinOp,
             capacity = bucket_capacity(max(left.length + right.length, 1))
     with _timer(qstats, "compute"):
         while True:
+            _track_join(
+                "join_single_shot",
+                ("single", nb, np_, len(bk), capacity, op.how),
+                f"single nb={nb} np={np_} cap={capacity} {op.how}",
+            )
             p_idx, p_take, b_idx, b_take, overflow = _readback(
                 device_join(bk, bv, pk, pv, capacity, op.how)
             )

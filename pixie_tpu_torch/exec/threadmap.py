@@ -29,8 +29,8 @@ Binding is token-based (save/restore, like ``contextvars``): nested
 binds compose, and exceptional exits restore the outer entry.
 
 A copy of the JAX package's ``exec/threadmap.py``; the port binds
-queries, bus handlers and the broker here, and its profiler is a later
-slice.
+queries, bus handlers and the broker here, and its profiler
+(``ingest/profiler.py``) reads the attribution.
 """
 
 from __future__ import annotations

@@ -11,9 +11,9 @@ batch.
 
 A script registers when its manifest says ``materialize: true`` (a hint
 that acts only while ``result_cache_mb`` is set), or once it has run
-``view_auto_min_runs`` times in this process (0 turns that off). The
-JAX package also counts runs seen by its telemetry; the port has no
-telemetry yet. The answer equals a one-shot rescan at the same ``now``
+``view_auto_min_runs`` times, counting both the runs seen here and
+those the engine's self-telemetry observed (0 turns that off). The
+answer equals a one-shot rescan at the same ``now``
 (same fragment, same window order, same finalize), across a group
 rebucket (the stream refolds at twice the capacity) and across true
 expiry (the stream refolds from the live rows). A time-bounded script
@@ -141,11 +141,22 @@ class ViewRegistry:
         self._runs: dict = {}  # sha -> runs in this process
         self._failed: set = set()  # shas that cannot stream: never retried
 
+    def _observed_runs(self, sha: str) -> int:
+        """Telemetry-seeded run history (the collector's ``runs`` per
+        short script hash): the run count includes the executed runs
+        the engine's telemetry saw, not just the ones counted here."""
+        tel = self.engine.telemetry
+        if tel is None:
+            return 0
+        return int((tel.observed().get(sha[:12]) or {}).get("runs", 0))
+
     def _should_register(self, sha: str) -> bool:
         if sha in manifest_materialized():
             return True
         min_runs = int(get_flag("view_auto_min_runs"))
-        return min_runs > 0 and self._runs.get(sha, 0) >= min_runs
+        return min_runs > 0 and (
+            self._runs.get(sha, 0) + self._observed_runs(sha) >= min_runs
+        )
 
     def register(self, query: str, now_ns: int = 0,
                  max_output_rows: int = 10_000) -> MaterializedView:

@@ -4,9 +4,10 @@ Reference parity: ``src/stirling`` core. A copy of the JAX package's
 ``ingest/`` collector surface: the ``SourceConnector`` lifecycle,
 per-source ``DataTable`` buffers, the sampling/push ``FrequencyManager``
 poll loop, ``RegisterDataPushCallback`` semantics, the synthetic
-``seq_gen`` source, the procfs sources, the replay generator and the
-canonical schemas (``schemas.py``). The dynamic tracepoint connectors
-and the protocol parsers are a later slice.
+``seq_gen`` source, the procfs sources, the self-sampling profiler
+(``profiler.py``), the replay generator and the canonical schemas
+(``schemas.py``). The dynamic tracepoint connectors and the protocol
+parsers are a later slice.
 """
 
 from .core import DataTable, FrequencyManager, SourceConnector

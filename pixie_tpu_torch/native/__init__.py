@@ -12,8 +12,11 @@ The port's own copies of the JAX package's ring and join sources:
 ``load(name)`` compiles ``<name>.cc`` with ``g++`` into
 ``pixie_tpu_torch/_build/lib<name>.so`` when the library is missing or
 older than its source, and loads it with ctypes; ``build`` compiles
-several at once. A build that fails raises ``NativeBuildError`` with the
-compiler's stderr; nothing falls back to a Python form on its own. The
+several at once. Each library is a ``native_library`` record of the
+program registry (``exec/programs.py``) with its build's wall time (0
+when the ``.so`` was already built). A build that fails raises
+``NativeBuildError`` with the compiler's stderr; nothing falls back to a
+Python form on its own. The
 JAX package's multi-core CPU fold (``seg_fold``, with its t-digest
 histogram) serves XLA's CPU backend and has no counterpart here.
 """
@@ -85,6 +88,7 @@ def build(names=LIBRARIES) -> dict:
             continue
         os.replace(tmp, library_path(name))
         out[name] = time.perf_counter() - t0
+        _registry().record_build("native_library", name, out[name])
     if failed:
         raise NativeBuildError("\n".join(failed))
     return out
@@ -98,8 +102,16 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             if _stale(name):
                 build((name,))
+            else:
+                _registry().record_build("native_library", name, 0.0)
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def _registry():
+    from ..exec.programs import default_program_registry
+
+    return default_program_registry()
 
 
 def np_view(a) -> np.ndarray:

@@ -6,6 +6,10 @@ that the op wrappers load with ``ctypes``. A library builds at first use
 when it is missing or older than its source or a ``csrc/*.cuh`` header;
 ``build`` compiles several at once, one ``nvcc`` process each. There is
 no fallback: a failed build raises.
+
+Each library is a ``cuda_library`` record of the program registry
+(``exec/programs.py``): its build's wall time (0 when the ``.so`` was
+already built) and, as hits, its kernel's launches (``count_launch``).
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ def build(names=KERNELS) -> dict:
             continue
         os.replace(tmp, library_path(name))
         out[name] = (secs, log)
+        _registry().record_build("cuda_library", name, secs)
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return out
@@ -90,7 +95,23 @@ def load(name: str) -> ctypes.CDLL:
     lib = library_path(name)
     if not lib.exists() or lib.stat().st_mtime < newest:
         build((name,))
+    else:
+        _registry().record_build("cuda_library", name, 0.0)
     return ctypes.CDLL(str(lib))
+
+
+_REGISTRY = None
+
+
+def _registry():
+    """The process program registry, looked up once (``count_launch``
+    reaches it on every launch)."""
+    global _REGISTRY
+    if _REGISTRY is None:
+        from ..exec.programs import default_program_registry
+
+        _REGISTRY = default_program_registry()
+    return _REGISTRY
 
 
 def bind(name: str, signatures: dict) -> ctypes.CDLL:
@@ -121,12 +142,16 @@ _COUNT_LOCK = threading.Lock()
 
 
 def count_launch(wrapper) -> None:
-    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``
-    and, by the launching thread's name, in
-    ``wrapper.launches_by_thread`` (an agent runs each fragment on a bus
-    thread named for it). Locked: agents launch from several threads."""
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``,
+    by the launching thread's name in ``wrapper.launches_by_thread`` (an
+    agent runs each fragment on a bus thread named for it), and as a hit
+    of its library's program record. Locked: agents launch from several
+    threads."""
     name = threading.current_thread().name
     with _COUNT_LOCK:
         wrapper.launches += 1
         by_thread = wrapper.launches_by_thread
         by_thread[name] = by_thread.get(name, 0) + 1
+    library = getattr(wrapper, "__name__", None)  # the kernel's library
+    if library is not None:
+        _registry().hit("cuda_library", library, library)

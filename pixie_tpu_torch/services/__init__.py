@@ -11,8 +11,9 @@ over gRPC.
 
 A port of the JAX package's ``services/``. Agents in other processes dial
 the broker's bus over the framed-TCP netbus (``netbus.py``, frames in the
-``wire.py`` codec); ``deploy.py`` starts the roles. Broker HA,
-self-telemetry and fault injection are later slices.
+``wire.py`` codec); ``deploy.py`` starts the roles. Agents fold their
+own traces into telemetry tables (``telemetry.py``). Broker HA and fault
+injection are later slices.
 """
 
 from .agent import Agent, KelvinAgent, PEMAgent
@@ -24,6 +25,11 @@ from .query_broker import (
     QueryResultForwarder,
     QueryTimeout,
 )
+from .telemetry import (
+    ClusterTraceView,
+    TelemetryCollector,
+    enable_self_telemetry,
+)
 from .tracker import AgentTracker
 
 __all__ = [
@@ -32,10 +38,13 @@ __all__ = [
     "AgentLost",
     "AgentTracker",
     "BusTimeout",
+    "ClusterTraceView",
     "KelvinAgent",
     "MessageBus",
     "PEMAgent",
     "QueryBroker",
     "QueryResultForwarder",
     "QueryTimeout",
+    "TelemetryCollector",
+    "enable_self_telemetry",
 ]

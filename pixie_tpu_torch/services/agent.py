@@ -21,9 +21,16 @@ Every agent owns an ingest ``Collector`` wired to its engine (the
 Stirling push path, ``pem_manager.cc:48``): ``start`` runs it on a thread
 of its own and ``stop`` stops it and its connectors.
 
+With the ``self_telemetry`` flag (on by default) ``start`` wires a
+``TelemetryCollector`` (``services/telemetry.py``) to the engine:
+finished fragment and merge traces fold into the agent's ``__queries__``,
+``__spans__``, ``__agents__`` and ``__programs__`` tables, and the spans
+of distributed traces go to the broker's trace view on
+``telemetry.spans``. Each heartbeat folds ``__tables__`` and ``__bus__``
+and carries the agent's profile summary (``ingest/profiler.py``).
+
 Not in this slice: the dynamic tracepoint surface (a tracepoint message
-is answered with a FAILED status), self-telemetry and the heartbeat's
-profile summary.
+is answered with a FAILED status).
 """
 
 from __future__ import annotations
@@ -110,6 +117,9 @@ class Agent:
         # rejected (no ack, no execution); unstamped dispatches (epoch
         # 0, plain single-broker deployments) always pass.
         self._max_epoch = 0
+        # Self-telemetry (services/telemetry.py), wired by start() under
+        # the self_telemetry flag.
+        self.telemetry = None
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "Agent":
@@ -150,6 +160,20 @@ class Agent:
                 f"agent.{a}.{kind}",
                 lambda m, k=kind: self._ack_receipt(m, k),
             ))
+        # Self-telemetry: finished fragment/merge traces fold into this
+        # agent's __queries__/__spans__/__agents__ tables (PxL-queryable,
+        # per-agent attribution) and distributed span summaries flow to
+        # the broker's tracez view.
+        from ..config import get_flag
+
+        if get_flag("self_telemetry"):
+            from .telemetry import enable_self_telemetry
+
+            self.telemetry = enable_self_telemetry(
+                self.engine, agent_id=self.agent_id,
+                kind="pem" if self.processes_data else "kelvin",
+                bus=self.bus,
+            )
         self._register()
         self._hb_thread = threading.Thread(target=self._heartbeat_loop, daemon=True)
         self._hb_thread.start()
@@ -201,18 +225,49 @@ class Agent:
 
     def _heartbeat_loop(self):
         while not self._stop.wait(self.heartbeat_interval_s):
-            # One freshness sweep per heartbeat, shipped with the
-            # sketch summaries for the tracker's cluster merge.
-            fresh = self.engine.table_store.freshness()
-            hb = {
-                "agent_id": self.agent_id,
-                "schemas": self._schemas(),
-                "table_stats": self._table_stats(freshness=fresh),
-            }
-            bus_rows = self._bus_summary()
-            if bus_rows:
-                hb["bus"] = bus_rows
-            self.bus.publish(TOPIC_HEARTBEAT, hb)
+            self.bus.publish(TOPIC_HEARTBEAT, self._heartbeat())
+
+    def _heartbeat(self) -> dict:
+        """One heartbeat: fold the storage and transport tiers into the
+        telemetry tables and build the message. One freshness sweep
+        serves the ``__tables__`` fold and the envelope; the fold is
+        forced (a row per table per heartbeat), so a stopped ingest
+        still advances fold time past its frozen watermark
+        (px/ingest_lag's signal), while the per-trace fold stays
+        change-cursored so query load cannot multiply rows."""
+        fresh = self.engine.table_store.freshness()
+        tel = self.telemetry
+        if tel is not None:
+            try:
+                tel.table_stats.fold(force=True, snapshot=fresh)
+            except Exception:
+                pass  # telemetry must never kill the heartbeat loop
+        hb = {
+            "agent_id": self.agent_id,
+            "schemas": self._schemas(),
+            "table_stats": self._table_stats(freshness=fresh),
+        }
+        # Profiling tier: this agent's cumulative folded-stack summary
+        # (top-N, counts monotonic) for the tracker's cluster merge,
+        # which /debug/pprof and `px profile` read. Filtered by agent_id
+        # so agents sharing a process never ship each other's samples.
+        from ..ingest.profiler import profile_summary
+
+        prof = profile_summary(agent_id=self.agent_id)
+        if prof:
+            hb["profile"] = prof
+        # Transport tier: fold this agent's bus counters into __bus__
+        # (heartbeat cadence only, see BusStatsCollector) and ship the
+        # same summary for the tracker's cluster merge.
+        if tel is not None:
+            try:
+                tel.bus_stats.fold(force=True)
+            except Exception:
+                pass  # telemetry must never kill the heartbeat loop
+        bus_rows = self._bus_summary()
+        if bus_rows:
+            hb["bus"] = bus_rows
+        return hb
 
     def _schemas(self) -> dict:
         # Snapshot: heartbeat thread vs concurrent table creation

@@ -10,12 +10,11 @@ query-lifecycle tracer (``exec/trace.py``), the bus
 (``services/busstats.py``), the tracker and the broker record here.
 
 ``ObservabilityServer`` serves ``/healthz``, ``/statusz``, ``/version``,
-``/metrics``, ``/debug/queryz``, ``/debug/tablez``, ``/debug/cachez`` and
-``/debug/busz`` over stdlib http.server. The endpoints whose sources are
-later slices (``/debug/tracez``: the telemetry's cluster trace view;
-``/debug/pprof`` and ``/debug/flamez``: the profiler;
-``/debug/programz``: the JAX package's XLA program registry) answer 404,
-as the JAX server does when their source is not wired.
+``/metrics``, ``/debug/queryz``, ``/debug/tablez``, ``/debug/cachez``,
+``/debug/busz``, ``/debug/tracez[/<id>]`` (the telemetry's cluster
+trace view), ``/debug/pprof`` and ``/debug/flamez`` (the profiler's
+folded stacks) and ``/debug/programz`` (the program registry) over
+stdlib http.server. An endpoint whose source is not wired answers 404.
 """
 
 from __future__ import annotations
@@ -359,16 +358,6 @@ def default_counter(name: str, help: str = "") -> Counter:
     return default_registry.counter(name, help)
 
 
-#: Endpoints whose sources are later slices of the port: the 404 body the
-#: JAX server gives when that source is not wired.
-_UNWIRED = {
-    "/debug/pprof": "no profiler wired\n",
-    "/debug/flamez": "no profiler wired\n",
-    "/debug/programz": "no program registry wired\n",
-    "/debug/tracez": "no trace view wired\n",
-}
-
-
 class ObservabilityServer:
     """healthz / statusz / metrics / debug endpoints for one service
     process. Wire a ``tracer`` (``exec.trace.Tracer``, e.g.
@@ -377,11 +366,18 @@ class ObservabilityServer:
 
     def __init__(self, registry: MetricsRegistry | None = None,
                  statusz_fn=None, health_fn=None, tracer=None,
-                 tablez_fn=None, cachez_fn=None, busz_fn=None):
+                 trace_view=None, programs=None, tablez_fn=None,
+                 cachez_fn=None, profilez_fn=None, busz_fn=None):
         self.registry = registry or default_registry
         self.statusz_fn = statusz_fn  # () -> dict
         self.health_fn = health_fn  # () -> (bool, str)
         self.tracer = tracer  # exec.trace.Tracer | None
+        # services.telemetry.ClusterTraceView | None: /debug/tracez — the
+        # cluster-stitched distributed-trace view.
+        self.trace_view = trace_view
+        # exec.programs.ProgramRegistry | None: /debug/programz — the
+        # program registry (compile wall time, hit counts).
+        self.programs = programs
         # () -> dict | None: /debug/tablez — the storage-tier freshness
         # snapshot (an agent serves its TableStore.freshness(); a broker
         # the tracker's cluster merge).
@@ -389,15 +385,23 @@ class ObservabilityServer:
         # () -> dict | None: /debug/cachez — the result cache (and an
         # agent's materialized views).
         self.cachez_fn = cachez_fn
+        # (agent_id=None, tenant=None, script_hash=None) -> profile
+        # summary rows ({stack, count, qid, script_hash, tenant, phase}):
+        # /debug/pprof (collapsed format) and /debug/flamez (static HTML
+        # flamegraph). An agent serves its own profiler's summary; a
+        # broker the tracker's cluster merge plus its own samples.
+        self.profilez_fn = profilez_fn
         # () -> dict | None: /debug/busz — the transport-tier snapshot.
         self.busz_fn = busz_fn
         self._httpd = None
 
     def handle(self, path: str) -> tuple[int, str, str]:
         """(status, content_type, body) — transport-independent core.
-        ``path`` may carry a query string, which these endpoints
-        ignore."""
-        path, _, _query = path.partition("?")
+        ``path`` may carry a query string (``/debug/pprof?seconds=5``);
+        endpoints that take no parameters ignore it."""
+        path, _, query = path.partition("?")
+        if path in ("/debug/pprof", "/debug/flamez"):
+            return self._handle_profile(path, query)
         if path == "/healthz":
             ok, msg = (True, "ok") if self.health_fn is None else self.health_fn()
             return (200 if ok else 503, "text/plain", msg + "\n")
@@ -434,17 +438,81 @@ class ObservabilityServer:
             ("/debug/tablez", self.tablez_fn, "no table stats wired\n"),
             ("/debug/cachez", self.cachez_fn, "no result cache wired\n"),
             ("/debug/busz", self.busz_fn, "no bus stats wired\n"),
+            ("/debug/programz",
+             self.programs.programz if self.programs is not None else None,
+             "no program registry wired\n"),
         ):
             if path == route:
                 if fn is None:
                     return (404, "text/plain", missing)
                 return (200, "application/json",
                         json.dumps(fn(), indent=1, default=str))
-        if path.startswith("/debug/tracez/"):
-            path = "/debug/tracez"
-        if path in _UNWIRED:
-            return (404, "text/plain", _UNWIRED[path])
+        if path == "/debug/tracez" or path.startswith("/debug/tracez/"):
+            if self.trace_view is None:
+                return (404, "text/plain", "no trace view wired\n")
+            tid = path[len("/debug/tracez/"):] if "/tracez/" in path else ""
+            if tid:
+                tr = self.trace_view.get(tid)
+                if tr is None:
+                    return (404, "text/plain", f"no trace {tid}\n")
+                body = json.dumps(tr, indent=1, default=str)
+            else:
+                body = json.dumps(
+                    self.trace_view.tracez(), indent=1, default=str
+                )
+            return (200, "application/json", body)
         return (404, "text/plain", "not found\n")
+
+    def _handle_profile(self, path: str, query: str) -> tuple[int, str, str]:
+        """/debug/pprof (flamegraph collapsed text) and /debug/flamez
+        (static HTML flamegraph) over the wired profile source.
+
+        Parameters: ``agent``/``tenant``/``script`` filter the merged
+        summary; ``seconds=N`` (pprof) windows it — two cumulative
+        snapshots N seconds apart, per-stack growth between them —
+        instead of the since-start totals."""
+        if self.profilez_fn is None:
+            return (404, "text/plain", "no profiler wired\n")
+        import time
+        import urllib.parse
+
+        from .telemetry import (
+            collapsed_text, counts_delta, flame_html, profile_counts,
+        )
+
+        params = urllib.parse.parse_qs(query)
+
+        def one(name):
+            vals = params.get(name)
+            return vals[0] if vals else None
+
+        agent, tenant, script = one("agent"), one("tenant"), one("script")
+
+        def counts():
+            return profile_counts(self.profilez_fn(
+                agent_id=agent, tenant=tenant, script_hash=script
+            ))
+
+        before = counts()
+        if path == "/debug/flamez":
+            label = " ".join(
+                f"{k}={v}" for k, v in
+                (("agent", agent), ("tenant", tenant), ("script", script))
+                if v
+            )
+            title = "pixie cpu flame" + (f" [{label}]" if label else "")
+            return (200, "text/html", flame_html(before, title=title))
+        try:
+            seconds = float(one("seconds") or 0)
+        except ValueError:
+            seconds = 0.0
+        if seconds > 0:
+            # Windowed profile: cumulative counts are monotonic, so the
+            # delta between two snapshots is exactly the window's
+            # samples. The wait is capped (it blocks one server thread).
+            time.sleep(min(seconds, 60.0))
+            before = counts_delta(before, counts())
+        return (200, "text/plain", collapsed_text(before))
 
     def start(self, port: int = 0, host: str = "127.0.0.1") -> int:
         """Serve on a background thread; returns the bound port."""
@@ -477,25 +545,14 @@ class ObservabilityServer:
             self._httpd = None
 
 
-#: torch allocator counters exported per device as
-#: ``pixie_device_memory_bytes{device,kind}`` (the JAX package's kinds
-#: where the allocator has one).
-_MEM_KINDS = (
-    ("bytes_in_use", "allocated_bytes.all.current"),
-    ("peak_bytes_in_use", "allocated_bytes.all.peak"),
-    ("bytes_reserved", "reserved_bytes.all.current"),
-)
-
-
 def engine_collector(engine):
-    """Collector exporting an engine's table + device-cache stats and its
-    card's allocator counters (table_metrics.h / pem_manager.h:63
-    node-memory gauges analog)."""
+    """Collector exporting an engine's table + device-cache stats
+    (table_metrics.h / pem_manager.h:63 node-memory gauges analog). The
+    card's allocator gauges come from the device-memory monitor
+    (``exec/programs.py``), which every engine installs."""
 
     def collect(reg: MetricsRegistry) -> None:
         import time as _time
-
-        import torch
 
         from ..config import get_flag
         from ..table_store.device_cache import total_resident_bytes
@@ -579,16 +636,5 @@ def engine_collector(engine):
             "pixie_pipeline_stall_seconds_total",
             "Query-thread seconds stalled waiting for a window",
         ).set(round(pt["stall_secs"], 6))
-        # The card's allocator: what this process holds on the device.
-        if engine.device.type == "cuda":
-            g_mem = reg.gauge(
-                "pixie_device_memory_bytes",
-                "torch.cuda.memory_stats() snapshot of the engine's card",
-            )
-            stats = torch.cuda.memory_stats(engine.device)
-            for kind, key in _MEM_KINDS:
-                g_mem.labels(device=str(engine.device), kind=kind).set(
-                    stats.get(key, 0)
-                )
 
     return collect

@@ -10,11 +10,13 @@ client with producer/consumer watchdog timeouts and cancellation.
 A port of the JAX package's ``services/query_broker.py``: admission
 control, the result forwarder with failover to the surviving agents,
 dispatch with retries and acks, replanning around expired agents, the
-cluster-level result cache, live queries and the bus API (``serve``).
-Not in this slice: pxtrace mutations (the compiler refuses a script that
-imports ``pxtrace``), the cluster profile, the stitched trace view and
-the broker-HA hooks (dispatches carry no epoch, as in a single-broker
-deployment).
+cluster-level result cache, live queries, the bus API (``serve``), the
+cluster-stitched trace view (``trace_view``, ``/debug/tracez``), the
+observed-cost admission floor (``observed_costs``) and the cluster
+profile (``profile_rows``, ``broker.profile``). Not in this slice:
+pxtrace mutations (the compiler refuses a script that imports
+``pxtrace``) and the broker-HA hooks (dispatches carry no epoch, as in a
+single-broker deployment).
 """
 
 from __future__ import annotations
@@ -824,6 +826,18 @@ class QueryBroker:
         from ..exec.trace import Tracer
 
         self.tracer = Tracer()
+        # Cluster-stitched distributed traces (/debug/tracez): the
+        # broker's own dispatch spans + the span summaries agents
+        # publish on telemetry.spans, grouped by trace id.
+        from .telemetry import ClusterTraceView, ObservedCostIndex
+
+        self.trace_view = ClusterTraceView(bus, tracer=self.tracer)
+        # Observed per-script-hash cost history (the __queries__
+        # feedback loop at the broker): every finished distributed
+        # trace's merged usage is indexed so admission control can floor
+        # sketch predictions at observed reality
+        # (admission_observed_floor).
+        self.observed_costs = ObservedCostIndex(tracer=self.tracer)
         # Watermark-validated merged-result cache (exec/result_cache.py;
         # result_cache_mb flag, 0 = off): repeats of an unchanged-
         # watermark script are served BEFORE admission/compile/dispatch.
@@ -1132,6 +1146,63 @@ class QueryBroker:
             with self._exec_gate:
                 self._exec_closed = True
                 self._exec_backlog.clear()
+        self.trace_view.close()
+
+    # -- profiling tier ------------------------------------------------------
+    def profile_rows(
+        self,
+        agent_id: str | None = None,
+        tenant: str | None = None,
+        script_hash: str | None = None,
+    ) -> list[dict]:
+        """Cluster-merged folded-stack profile: the tracker's heartbeat
+        summaries across agents plus this broker process's own profiler
+        (deploy.py samples the broker as agent "broker"), merged per
+        (stack, attribution) key, hottest first — what /debug/pprof,
+        /debug/flamez and the ``broker.profile`` topic serve."""
+        rows = self.tracker.profile(
+            agent_id=agent_id, tenant=tenant, script_hash=script_hash
+        )
+        from ..ingest.profiler import profile_summary
+
+        local = (
+            profile_summary(agent_id="broker", top=0)
+            if agent_id in (None, "broker") else []
+        )
+        if not local:
+            return rows
+        merged: dict[tuple, int] = {}
+        for r in rows + [
+            r for r in local
+            if (tenant is None or r.get("tenant", "") == tenant)
+            and (script_hash is None
+                 or r.get("script_hash", "") == script_hash)
+        ]:
+            key = (
+                r.get("stack", ""), r.get("qid", ""),
+                r.get("script_hash", ""), r.get("tenant", ""),
+                r.get("phase", ""),
+            )
+            merged[key] = merged.get(key, 0) + int(r.get("count", 0))
+        out = [
+            {
+                "stack": k[0], "count": n, "qid": k[1],
+                "script_hash": k[2], "tenant": k[3], "phase": k[4],
+            }
+            for k, n in merged.items()
+        ]
+        out.sort(key=lambda r: (-r["count"], r["stack"]))
+        return out
+
+    def profile_agents(self) -> list[str]:
+        """Agents contributing stacks to the merged profile (the
+        broker's own sampler counts when it has samples)."""
+        from ..ingest.profiler import profile_summary
+
+        agents = self.tracker.profile_agents()
+        if profile_summary(agent_id="broker", top=1):
+            agents = sorted(set(agents) | {"broker"})
+        return agents
 
     def cancel_query(self, qid: str) -> bool:
         """Cooperatively cancel a running query (`px cancel` /
@@ -1310,6 +1381,23 @@ class QueryBroker:
             getattr(compiled.plan, "resource_report", None),
             getattr(dplan, "resource_report", None),
         )
+        # Calibration (admission_observed_floor): floor the plan-time
+        # prediction at this script hash's OBSERVED staged-byte history
+        # — a sketch-less unknown becomes the observed bytes (admitted
+        # against reality instead of accounted at zero), and a
+        # prediction below past observations is raised to them. The
+        # floored dict flows everywhere predicted_cost does: the trace,
+        # every dispatch, the client result and the admission decision
+        # below. Gated on admission being on: with no budget the floor
+        # would only replace the auditable pxbound prediction without
+        # anyone consuming it.
+        if (
+            get_flag("admission_observed_floor")
+            and float(get_flag("admission_bytes_budget_mb")) > 0
+        ):
+            predicted = self.observed_costs.floor_predicted(
+                predicted, trace.script_hash
+            )
         trace.predicted = predicted
 
         # LaunchQuery: merge fragment first (so the router can accept
@@ -1860,6 +1948,25 @@ class QueryBroker:
 
             _reply(msg, {"ok": True, "scripts": list_scripts()})
 
+        def _on_profile(msg):
+            # `px profile` / api.Client.profile: the cluster-merged
+            # folded-stack CPU profile (tracker heartbeat summaries +
+            # the broker's own profiler), optionally filtered.
+            try:
+                n = max(1, min(int(msg.get("limit", 64)), 4096))
+            except (TypeError, ValueError):
+                n = 64
+            rows = self.profile_rows(
+                agent_id=msg.get("agent") or None,
+                tenant=msg.get("tenant") or None,
+                script_hash=msg.get("script") or None,
+            )
+            _reply(msg, {
+                "ok": True,
+                "agents": self.profile_agents(),
+                "stacks": rows[:n],
+            })
+
         def _on_debug_queries(msg):
             # `px debug queries`: the broker's recent distributed-query
             # traces — status, duration, resource usage with per-agent
@@ -1893,6 +2000,7 @@ class QueryBroker:
             self.bus.subscribe("broker.schemas", _guarded(_on_schemas)),
             self.bus.subscribe("broker.agents", _guarded(_on_agents)),
             self.bus.subscribe("broker.scripts", _guarded(_on_scripts)),
+            self.bus.subscribe("broker.profile", _guarded(_on_profile)),
             self.bus.subscribe(
                 "broker.debug_queries", _guarded(_on_debug_queries)
             ),

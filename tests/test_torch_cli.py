@@ -154,9 +154,42 @@ def test_run_local_without_a_card_exits_non_zero(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_profile_is_not_in_this_slice(capsys):
-    assert port_cli(["profile", "--broker", "127.0.0.1:1"]) == 2
-    assert "not in this slice" in capsys.readouterr().err
+@pytest.mark.parametrize("var,rc", [("PIXIE_TPU_SELF_PROFILING", 1),
+                                    ("PIXIE_TPU_BROKER_HA", 2),
+                                    ("PIXIE_TPU_LOCKDEP", 2)])
+def test_deploy_options_of_later_slices(monkeypatch, capsys, var, rc):
+    """Self-profiling is accepted (without a card the role then exits 1
+    on the device), broker HA and lockdep are refused with 2."""
+    import torch
+
+    from pixie_tpu_torch import deploy
+
+    monkeypatch.delenv("PIXIE_TPU_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("pixie_tpu_torch.services.crash.install",
+                        lambda **kw: None)
+    monkeypatch.setenv(var, "1")
+    assert deploy.main(["pem"]) == rc
+    err = capsys.readouterr().err
+    assert ("not in this slice" in err) == (rc == 2), err
+
+
+def test_profile_is_not_in_this_slice():
+    """``profile`` came with the telemetry slice: on served clusters of
+    both packages (no profiler runs in them) every form answers 0 with
+    the JAX CLI's output."""
+    outs = {}
+    for name in ("port", "jax"):
+        cli = PKGS[name].cli
+        with _served(name) as (addr, _broker):
+            outs[name] = [
+                _run(cli, "profile", "--broker", addr),
+                json.loads(_run(cli, "profile", "--broker", addr,
+                                "-o", "json")),
+                _run(cli, "profile", "--broker", addr, "--diff", "a", "b"),
+            ]
+    assert outs["port"] == outs["jax"]
+    assert outs["port"][1] == {"agents": [], "stacks": []}
 
 
 def _wait_for(pred, timeout_s: float = 5.0) -> bool:
@@ -235,11 +268,7 @@ def test_run_tables_agents_against_served_brokers(tmp_path):
                 _table_part(_run(cli, "run", str(qfile), "--broker", addr)),
                 _run(cli, "run", "px/http_stats", "--broker", addr,
                      "-o", "json"),
-                # The JAX agents add their self-telemetry tables
-                # (``__queries__``, ...), a later slice of the port.
-                [ln for ln in _run(cli, "tables", "--broker",
-                                   addr).splitlines()
-                 if not ln.startswith("__")],
+                _run(cli, "tables", "--broker", addr).splitlines(),
                 sorted(ln.split()[0] for ln in
                        _run(cli, "agents", "--broker", addr).splitlines()),
             ]
@@ -340,9 +369,11 @@ def _free_port() -> int:
 
 def test_three_deploy_roles_answer_the_cli(tmp_path):
     """broker, a PEM with the seq-gen source and a Kelvin as processes on
-    the CPU; the CLI runs the sequences group-by and lists the agents,
-    the API client gets the same counts, and the broker's HTTP surface
-    answers. The whole test has a 60 s deadline."""
+    the CPU, with self-profiling asked for by its environment variable;
+    the CLI runs the sequences group-by, lists the agents and prints the
+    cluster profile, the API client gets the same counts, and the
+    broker's HTTP surface answers, its trace view, profile and program
+    registry included. The whole test has a 60 s deadline."""
     from pixie_tpu_torch.api import Client
 
     deadline = time.monotonic() + 60.0
@@ -353,6 +384,7 @@ def test_three_deploy_roles_answer_the_cli(tmp_path):
         PIXIE_TPU_TORCH_DEVICE="cpu",
         PIXIE_TPU_NETBUS_PORT=str(port), PIXIE_TPU_OBS_PORT=str(obs),
         PIXIE_TPU_BROKER=f"127.0.0.1:{port}", PIXIE_TPU_SEQGEN="1",
+        PIXIE_TPU_SELF_PROFILING="1",
     )
     qfile = tmp_path / "q.pxl"
     qfile.write_text(SEQ_QUERY)
@@ -419,7 +451,16 @@ def test_three_deploy_roles_answer_the_cli(tmp_path):
                 "df.groupby('modulo10').agg", "df.agg"))["output"]
             assert sorted(grouped["modulo10"].tolist()) == list(range(10))
             assert int(np.sum(grouped["n"])) == int(whole["n"][0]) == 64
-        for path in ("/healthz", "/metrics"):
+            r = subprocess.run(
+                [sys.executable, "-m", "pixie_tpu_torch.cli", "profile",
+                 "--broker", f"127.0.0.1:{port}", "-o", "json"],
+                env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                timeout=max(1.0, deadline - time.monotonic()),
+            )
+            assert r.returncode == 0, r.stdout + r.stderr
+            assert "broker" in json.loads(r.stdout)["agents"], r.stdout
+        for path in ("/healthz", "/metrics", "/debug/tracez",
+                     "/debug/pprof", "/debug/flamez", "/debug/programz"):
             with urllib.request.urlopen(
                     f"http://127.0.0.1:{obs}{path}", timeout=5) as resp:
                 assert resp.status == 200

@@ -5,9 +5,12 @@ the JAX package's.
 over a port engine and the JAX server over a JAX engine holding the same
 rows after the same query: every wired endpoint answers with the JAX
 server's status code, content type and keys (for ``/metrics``, the
-engine collector's metric names and table rows); the endpoints whose
-sources are later slices answer as the JAX server does when they are
-not wired. The ``ScriptRunner``'s ticks against a port broker equal the
+engine collector's metric names and table rows); an endpoint whose
+source is not wired answers as the JAX server does. Wired to a trace
+view, a program registry and a profile source fed the same spans and
+stacks, ``/debug/tracez``, ``/debug/pprof`` and ``/debug/flamez`` answer
+the JAX server's bodies, and ``/debug/programz`` its keys. The
+``ScriptRunner``'s ticks against a port broker equal the
 JAX runner's against a JAX broker, and against a bare engine.
 """
 
@@ -132,6 +135,67 @@ def test_endpoint_matches_jax_server(servers, path):
                 if ln.startswith("pixie_table_rows{")]
         assert rows == [ln for ln in jbody.splitlines()
                         if ln.startswith("pixie_table_rows{")]
+    else:
+        assert body == jbody
+
+
+_SPANS = [
+    {"span_id": f"{i:016x}", "parent_id": "" if i == 0 else f"{0:016x}",
+     "name": ("query", "compile", "dispatch", "fragment")[i % 4],
+     "start_unix_nano": 1000 * i, "end_unix_nano": 1000 * i + 500}
+    for i in range(6)
+]
+_PROFILE = [
+    {"stack": "a.py:f;b.py:g", "count": 7, "qid": "q1", "script_hash": "h1",
+     "tenant": "alpha", "phase": "host"},
+    {"stack": "a.py:f;c.py:h", "count": 3, "qid": "q2", "script_hash": "h2",
+     "tenant": "beta", "phase": "device_dispatch"},
+]
+
+
+def _profilez(agent_id=None, tenant=None, script_hash=None):
+    return [r for r in _PROFILE
+            if (tenant is None or r["tenant"] == tenant)
+            and (script_hash is None or r["script_hash"] == script_hash)]
+
+
+@pytest.fixture(scope="module")
+def wired_servers():
+    from pixie_tpu.exec.programs import default_program_registry as jreg
+    from pixie_tpu.services.telemetry import ClusterTraceView as JaxView
+    from pixie_tpu_torch.exec.programs import default_program_registry
+    from pixie_tpu_torch.services.telemetry import ClusterTraceView
+
+    out = {}
+    for name, view_cls, programs, obs_mod in (
+        ("port", ClusterTraceView, default_program_registry(), port_obs),
+        ("jax", JaxView, jreg(), jax_obs),
+    ):
+        view = view_cls()
+        view._ingest("ab" * 16, "pem-0", [dict(s) for s in _SPANS])
+        out[name] = obs_mod.ObservabilityServer(
+            registry=obs_mod.MetricsRegistry(), trace_view=view,
+            programs=programs, profilez_fn=_profilez)
+    return out
+
+
+@pytest.mark.parametrize("path", [
+    "/debug/tracez", "/debug/tracez/" + "ab" * 16, "/debug/tracez/nope",
+    "/debug/pprof", "/debug/pprof?tenant=alpha", "/debug/pprof?script=h2",
+    "/debug/flamez", "/debug/flamez?tenant=beta", "/debug/programz",
+])
+def test_wired_debug_endpoint_matches_jax(wired_servers, path):
+    code, ctype, body = wired_servers["port"].handle(path)
+    jcode, jctype, jbody = wired_servers["jax"].handle(path)
+    assert (code, ctype) == (jcode, jctype), (body, jbody)
+    assert code == (404 if path.endswith("nope") else 200)
+    if path == "/debug/programz":
+        assert sorted(json.loads(body)) == sorted(json.loads(jbody))
+    elif path == "/debug/tracez":
+        got, want = json.loads(body), json.loads(jbody)
+        for row in got["traces"] + want["traces"]:
+            row.pop("updated_unix_nano")  # the clock at ingest
+        assert got == want
     else:
         assert body == jbody
 

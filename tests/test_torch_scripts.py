@@ -142,7 +142,8 @@ def _check_agent_status():
         jax_services, lambda: JaxEngine(window_rows=WINDOW))
     assert got["agent_id"] == ref["agent_id"] == ["kelvin-0", "pem-0"]
     assert got["kind"] == ref["kind"]
-    assert got["num_tables"] == [0, 1]
+    # Both packages' agents hold their self-telemetry tables too.
+    assert got["num_tables"] == ref["num_tables"]
     assert all(0 <= a < 3 * HEARTBEAT_S + 1.0 for a in got["last_heartbeat_s"])
 
 

@@ -368,10 +368,8 @@ def test_agent_status_matches_jax(clusters):
     for c in ("agent_id", "kind"):
         np.testing.assert_array_equal(a[c], b[c], c)
     assert list(a["agent_id"]) == ["kelvin-0", "pem-0", "pem-1", "pem-2"]
-    # The JAX agents also hold their self-telemetry tables (a later slice
-    # of the port): the same number on every agent.
-    assert list(a["num_tables"]) == [0, 1, 1, 1]
-    assert len(set(b["num_tables"] - a["num_tables"])) == 1
+    # Both packages' agents hold their self-telemetry tables.
+    np.testing.assert_array_equal(a["num_tables"], b["num_tables"])
     assert (a["last_heartbeat_s"] < 3 * FAST["heartbeat_interval_s"] + 1.0).all()
 
 
