@@ -142,7 +142,22 @@ without them. In order it:
    and a filtered row chain, eight rounds of one window and a poll, each
    poll folding exactly the new window); at the end every table of the
    run is checked to be on the native ring but the ring check's one;
-12. prints one ``{"kernels": [...]}`` line and, last, the device line.
+12. the device_result phase (on the resident main replay, after the
+   row chains): px/http_stats and px/service_stats with
+   ``execute_query(materialize=False)``, each ``DeviceResult.to_host()``
+   held to the materialized answer (px/http_stats bit-identical,
+   px/service_stats within the serving checks' tolerances) and to numpy,
+   with the device-to-host copies made before ``execute_query`` returns
+   and inside ``to_host()`` (torch.profiler); a result kept on the card
+   left out of the next query's peak; and one rebucket forced inside
+   ``to_host()`` (px/http_stats' AggOp cut to 64 groups, dense key
+   domains off, through ``execute_plan(materialize=False)``);
+13. the bench phase (at the end): ``pixie_tpu_torch.bench.run_shape``
+   for bench.py's ten shapes at 2^22 head rows (each shape's divisor
+   applies), the A/B pass off, each checked with bench.py's numpy
+   assertions; then the gates phase: ``check_bench_shapes``,
+   ``check_obs_scripts`` and ``check_bounds`` on the card, each 0;
+14. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -4408,6 +4423,177 @@ def phase_deploy(device) -> None:
                       "secs": time.perf_counter() - t_phase}))
 
 
+# -- device-resident results, the port's bench and its gates --------------------
+DR_SCRIPTS = ("px/http_stats", "px/service_stats")
+DR_MAX_GROUPS = 64  # the forced rebucket: 256 groups climb 64 -> 128 -> 256
+BENCH_HEAD_ROWS = 1 << 22  # pixie_tpu_torch.bench's head rows in this run
+
+
+def d2h_copies(prof) -> int:
+    """Device-to-host copies in a torch.profiler trace."""
+    return sum(1 for e in prof.events() if "DtoH" in e.name)
+
+
+def _sorted_columns(hb, keys) -> dict:
+    d = {k: np.asarray(v) for k, v in hb.to_pydict().items()}
+    order = np.lexsort([d[k] for k in reversed(keys)])
+    return {k: v[order] for k, v in d.items()}
+
+
+def phase_device_result(eng, expect: Expect) -> None:
+    """``execute_query(materialize=False)`` on the resident main replay:
+    the DeviceResult's ``to_host()`` against the materialized answer
+    (px/http_stats exact, px/service_stats within the serving checks'
+    tolerances) and numpy's; the device-to-host copies made before
+    ``execute_query`` returns and inside ``to_host()`` (torch.profiler);
+    then one rebucket forced inside ``to_host()``: px/http_stats compiled,
+    its AggOp cut to 64 groups, dense key domains off, run through
+    ``execute_plan(materialize=False)``."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixie_tpu_torch.config import override_flag
+    from pixie_tpu_torch.exec.engine import DeviceResult
+    from pixie_tpu_torch.exec.plan import AggOp
+    from pixie_tpu_torch.planner import CompilerState, compile_pxl
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for name in DR_SCRIPTS:
+        q = query_text(name)
+        t0 = time.perf_counter()
+        mat = eng.execute_query(q)["output"]
+        mat_s = time.perf_counter() - t0
+        expect.check(name, mat)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.execute_query(q, materialize=False)["output"]
+        return_s = time.perf_counter() - t0
+        assert isinstance(res, DeviceResult), type(res)
+        assert res.block_until_ready() is res
+        ready_s = time.perf_counter() - t0
+        host = res.to_host()
+        total_s = time.perf_counter() - t0
+        assert res.to_host() is host
+        expect.check(name, host)
+        if name == "px/http_stats":  # exact int64 folds: bit-identical
+            keys = ["service", "req_path"]
+            got, want = _sorted_columns(host, keys), _sorted_columns(mat, keys)
+            assert set(got) == set(want)
+            for c in got:
+                assert np.array_equal(got[c], want[c]), f"device_result {c}"
+        else:
+            sv_check(f"device_result {name}", name, host, mat)
+        # The copies: before execute_query returns, and in to_host.
+        with profile(activities=acts) as before:
+            res = eng.execute_query(q, materialize=False)["output"]
+        with profile(activities=acts) as inside:
+            res.to_host()
+        copies = {"before_return": d2h_copies(before),
+                  "in_to_host": d2h_copies(inside)}
+        assert copies["in_to_host"] > 0, copies
+        print(json.dumps({
+            "phase": "device_result", "script": name,
+            "materialized_s": mat_s, "return_s": return_s,
+            "block_until_ready_s": ready_s, "to_host_total_s": total_s,
+            "d2h_copies": copies, "checked": True,
+        }))
+
+    # A result kept on the card is not part of the next query's peak.
+    q = query_text("px/http_stats")
+    eng.execute_query(q)
+    alone = eng.tracer.last().usage.device_peak_bytes
+    kept = eng.execute_query(q, materialize=False)["output"]
+    eng.execute_query(q)
+    beside = eng.tracer.last().usage.device_peak_bytes
+    kept.to_host()
+    print(json.dumps({"phase": "device_result", "check": "peak",
+                      "alone": alone, "beside_a_kept_result": beside}))
+    assert beside == alone, (alone, beside)
+
+    # A rebucket inside to_host: with dense domains off, the 256
+    # (service, path) groups overflow a 64-group fold twice.
+    state = CompilerState(
+        schemas={n: t.relation for n, t in eng.tables.items()},
+        registry=eng.registry, table_stats=eng._compile_table_stats(),
+    )
+    plan = compile_pxl(q, state).plan
+    for node in plan.nodes.values():
+        if isinstance(node.op, AggOp):
+            node.op = dataclasses.replace(node.op, max_groups=DR_MAX_GROUPS)
+    with override_flag("dense_domain_limit", 1):
+        t0 = time.perf_counter()
+        res = eng.execute_plan(plan, materialize=False)["output"]
+        return_s = time.perf_counter() - t0
+        st = eng.last_stats
+        assert isinstance(res, DeviceResult) and st.rebuckets == 0
+        host = res.to_host()
+        total_s = time.perf_counter() - t0
+    expect.check("px/http_stats", host)
+    marked = sum("rebucket" in f.ops for f in st.fragments)
+    assert st.rebuckets == marked == 2, (st.rebuckets, marked)
+    print(json.dumps({
+        "phase": "device_result", "check": "rebucket_in_to_host",
+        "max_groups": DR_MAX_GROUPS, "rebuckets": st.rebuckets,
+        "windows": st.windows, "return_s": return_s,
+        "to_host_total_s": total_s, "groups": host.length, "checked": True,
+    }))
+
+
+def phase_bench(device) -> dict:
+    """``pixie_tpu_torch.bench.run_shape`` in this process for bench.py's
+    ten shapes at 2^22 head rows (each shape's divisor applies), the A/B
+    pass off; each shape checked with bench.py's numpy assertions (a
+    failed check raises). Returns the kernels' launches over the phase."""
+    import gc
+
+    import torch
+
+    from pixie_tpu_torch import bench
+
+    _zero_launches()
+    for shape in bench.ALL_SHAPES:
+        res = bench.run_shape(shape, BENCH_HEAD_ROWS, WINDOW, device, ab=False)
+        assert res["checked"] is True, (shape, res)
+        print(json.dumps({"phase": "bench", "shape": shape, **res},
+                         default=str))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return _launch_counts()
+
+
+def phase_gates(device) -> None:
+    """The bench-shape gates on the card: every bench shape's plan
+    verifies clean (``check_bench_shapes``), so do the 13 self-monitoring
+    scripts (``check_obs_scripts``), and every bench shape and script
+    replayed on the card stays within its predicted bounds, an
+    over-budget query is refused at compile, and the memoized bounds
+    pass stays under 5% of a compile (``check_bounds``). Their reports
+    are printed here."""
+    import contextlib
+    import io
+
+    from pixie_tpu_torch.analysis.bench_check import check_bench_shapes
+    from pixie_tpu_torch.analysis.bound_check import check_bounds
+    from pixie_tpu_torch.analysis.obs_check import check_obs_scripts
+
+    failures = {}
+    for name, gate in (("bench_check", check_bench_shapes),
+                       ("obs_check", check_obs_scripts),
+                       ("bound_check", lambda: check_bounds(device=device))):
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            failures[name] = gate()
+        secs = time.perf_counter() - t0
+        for line in err.getvalue().splitlines():
+            print(f"  {name}: {line}")
+        print(json.dumps({"phase": "gates", "gate": name,
+                          "failures": failures[name], "secs": secs}))
+    assert not any(failures.values()), failures
+
+
 def main() -> int:
     import gc
 
@@ -4492,7 +4678,12 @@ def main() -> int:
     phase_attribution(eng, expect)
     phase_host_staged(replay, expect, device)
     phase_row_chains(eng, replay)
-    elapsed("window path")
+    _zero_launches()
+    phase_device_result(eng, expect)
+    device_result = _launch_counts()
+    for k in kernels:
+        k["launches_device_result"] = device_result[k["name"]]
+    elapsed("window path and device results")
     # Agent mode, held to ``eng`` before the tail grows its table.
     cluster = phase_cluster(eng, replay, device)
     for k in kernels:
@@ -4542,6 +4733,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_full_budget(device)
     elapsed("eviction and full budget")
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_launches = phase_bench(device)
+    for k in kernels:
+        k["launches_bench"] = bench_launches[k["name"]]
+    elapsed("bench")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gates(device)
+    elapsed("gates")
 
     print(json.dumps({"phase": "serving", "check": "ring_census",
                       **census.check()}))

@@ -13,7 +13,13 @@ A port of the JAX package's ``analysis/`` with two of its passes:
   ``PlanResourceReport`` pre-sizes the engine's aggregate group
   capacity and join output buffers.
 
-The source lint, lockdep and the bound soundness gate are later slices.
+Three gates replay the bench's shapes (each a ``python -m`` entry):
+``bench_check`` (every bench shape's plan verifies clean, split for 2
+PEMs and a Kelvin), ``obs_check`` (the same for the self-monitoring
+scripts over the telemetry schemas) and ``bound_check`` (observed usage
+within the predicted bounds on the engine's device, the over-budget
+refusal, the memoized pass under 5% of a compile). The source lint and
+lockdep are a later slice.
 """
 
 from .bounds import (

@@ -696,7 +696,14 @@ def _stats_key(table_stats: dict) -> str:
     """Cache key for a table_stats snapshot. ``repr`` is one C-level
     pass (a recursive freeze dominated the memo hit); it keys on dict
     ORDER as well as content, so a semantically-equal snapshot built in
-    a different order merely misses the cache — never a wrong hit."""
+    a different order merely misses the cache — never a wrong hit.
+    ``__observed__`` (every script's observed cardinalities, which grow
+    with each run under telemetry) is left out: the walk never reads
+    it, and the compiled script's own entry rides in as
+    ``__observed_self__``, which the key keeps."""
+    if "__observed__" in table_stats:
+        table_stats = {k: v for k, v in table_stats.items()
+                       if k != "__observed__"}
     return repr(table_stats)
 
 
@@ -716,33 +723,30 @@ def apply_plan_bounds(plan: Plan, schemas, registry, table_stats=None, *,
 
     key = None
     if script is not None:
-        try:
-            key = (
-                script,
-                # items_tuple() is cached on the (immutable) Relation —
-                # rebuilding ~20 canonical tables' tuples per compile
-                # was the dominant cost of a memo hit.
-                tuple(sorted(
-                    (t, r.items_tuple())
-                    for t, r in (schemas or {}).items()
-                )),
-                id(registry),
-                _stats_key(table_stats or {}),
-                plan_params,
-                # Every flag the walk or its budget checks read.
-                get_flags(
-                    "bounds_safety", "bounds_query_budget_mb",
-                    "bounds_device_budget_mb", "window_rows",
-                    "max_groups_limit", "bounds_presize",
-                ),
-            )
-            hash(key)
-        except TypeError:
-            key = None
+        key = (
+            script,
+            # A Relation caches its hash (it is immutable): hashing ~20
+            # canonical tables' columns per compile was the dominant
+            # cost of a memo hit. Table names are unique, so the sort
+            # never compares two relations.
+            tuple(sorted((schemas or {}).items())),
+            id(registry),
+            _stats_key(table_stats or {}),
+            plan_params,
+            # Every flag the walk or its budget checks read.
+            get_flags(
+                "bounds_safety", "bounds_query_budget_mb",
+                "bounds_device_budget_mb", "window_rows",
+                "max_groups_limit", "bounds_presize",
+            ),
+        )
     report = None
     if key is not None:
-        with _BOUNDS_CACHE_LOCK:
-            cached = _BOUNDS_CACHE.get(key)
+        try:
+            with _BOUNDS_CACHE_LOCK:
+                cached = _BOUNDS_CACHE.get(key)
+        except TypeError:  # an unhashable plan parameter: no memo
+            key = cached = None
         if cached is not None:
             report, _registry_pin = cached
     if report is None:

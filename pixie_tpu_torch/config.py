@@ -19,14 +19,17 @@ import threading
 _DEFAULTS: dict[str, int | float | bool | str] = {}
 _DOCS: dict[str, str] = {}
 _CHOICES: dict[str, tuple] = {}
+_ENV_VARS: dict[str, str] = {}  # name -> PIXIE_TPU_<NAME>
 _OVERRIDES: dict[str, int | bool | str] = {}
 _LOCK = threading.Lock()
+_MISSING = object()
 
 
 def define_flag(name: str, default: int | bool | str, doc: str,
                 choices: tuple | None = None) -> None:
     _DEFAULTS[name] = default
     _DOCS[name] = doc
+    _ENV_VARS[name] = "PIXIE_TPU_" + name.upper()
     if choices is not None:
         _CHOICES[name] = choices
 
@@ -55,14 +58,24 @@ def get_flag(name: str) -> int | bool | str:
     with _LOCK:
         if name in _OVERRIDES:
             return _OVERRIDES[name]
-    env = os.environ.get("PIXIE_TPU_" + name.upper())
+    env = os.environ.get(_ENV_VARS[name])
     return _parse(name, env) if env is not None else default
 
 
 def get_flags(*names) -> tuple:
-    """``get_flag`` of each name, as a tuple (the analysis passes' memo
-    keys read several flags per compile)."""
-    return tuple(get_flag(n) for n in names)
+    """``get_flag`` of each name, as a tuple, under one lock acquisition
+    (the analysis passes' memo keys read several flags per compile)."""
+    environ = os.environ
+    with _LOCK:
+        ov = [_OVERRIDES.get(n, _MISSING) for n in names]
+    out = []
+    for n, o in zip(names, ov):
+        if o is not _MISSING:
+            out.append(o)
+            continue
+        env = environ.get(_ENV_VARS[n])
+        out.append(_parse(n, env) if env is not None else _DEFAULTS[n])
+    return tuple(out)
 
 
 def set_flag(name: str, value) -> None:

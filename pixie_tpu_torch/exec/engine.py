@@ -76,18 +76,27 @@ leaves the card as numpy, or the fragment's rows. The merge agent's
 plan starts from ``BridgeSourceOp``s fed by ``bridge_inputs``; shipped
 states merge on its card and finalize (``exec/bridge.py``).
 
+Device-resident results: ``execute_query(materialize=False)`` leaves
+each aggregate output with one consumer on the card as a
+``DeviceResult`` (the finalized planes, the valid mask and the overflow
+flag). The query's kernels are enqueued and nothing is read back; the
+caller picks the moment of the one readback (``to_host``, which also
+resolves a group overflow), or only waits for the card
+(``block_until_ready``). Row chains, fan-out outputs and every other
+sink still come back as host batches.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card it raises rather than carrying on on the CPU. Not ported
 here: the TPU's scan batching of resident windows (``update_all``,
-which amortises TPU dispatch cost), the native multi-core CPU fold (for
-the XLA:CPU backend) and device-resident results
-(``materialize=False``).
+which amortises TPU dispatch cost) and the native multi-core CPU fold
+(for the XLA:CPU backend).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -149,7 +158,8 @@ from .stream import (
 from .trace import Tracer, plan_script
 from .zoneskip import chain_pruner
 
-__all__ = ["Engine", "QueryCancelled", "QueryError", "QueryStats", "resolve_device"]
+__all__ = ["DeviceResult", "Engine", "QueryCancelled", "QueryError",
+           "QueryStats", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -167,6 +177,92 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+class DeviceResult:
+    """An aggregate query output left on the engine's device.
+
+    Holds the finalized ``[G]`` column planes, the valid mask and the
+    overflow flag as device tensors, with the stream and fragment that
+    made them and the creating query's stats. ``execute_query`` returned
+    with the kernels enqueued and nothing read back: ``to_host`` makes
+    the one readback, and reads the overflow flag there. An overflow
+    rebuckets there too (double ``max_groups``, fold again, finalize),
+    each attempt a fresh fragment of the creating query's stats marked
+    ``rebucket``. Such a refold reads the source table as it is then:
+    rows appended since the query ran are included, unlike the answer
+    without an overflow; a caller that needs the snapshot calls
+    ``to_host`` before appending more. The host batch is cached (a second
+    ``to_host`` returns the same object) and the device tensors are
+    dropped.
+
+    While it lives, its bytes are held on the engine's device-memory
+    monitor (``exec/programs.py``), so a later query's peak does not
+    count them."""
+
+    def __init__(self, engine, stream, frag, cols, valid, overflow,
+                 stats, fstats):
+        self._engine = engine
+        self._stream = stream
+        self._frag = frag
+        self._cols = cols
+        self._valid = valid
+        self._overflow = overflow
+        self._stats = stats  # the creating query's QueryStats
+        self._fstats = fstats  # the fragment that folded it
+        self._host: HostBatch | None = None
+        device = engine.device
+        self._event = None
+        if device.type == "cuda":
+            # Marks the end of the query's work on this thread's stream.
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+        monitor = engine.device_memory
+        self._release = weakref.finalize(
+            self, monitor.release,
+            monitor.hold(device, _held_nbytes(cols, valid, overflow)),
+        )
+
+    @property
+    def relation(self) -> Relation:
+        return self._frag.relation
+
+    def block_until_ready(self) -> "DeviceResult":
+        """Wait for the engine's device work on this result without
+        reading it back (nothing to wait for on the CPU)."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self
+
+    def to_host(self) -> HostBatch:
+        if self._host is None:
+            self._host = self._engine._agg_result(
+                self._stream, self._frag, self._cols, self._valid,
+                self._overflow, self._stats, None, fstats=self._fstats,
+            )
+            self._stats.seal()  # a rebucket's fragment gets its rows
+            self._cols = self._valid = self._overflow = None
+            self._stream = self._event = None
+            self._release()
+        return self._host
+
+    def to_pydict(self, **kw) -> dict:
+        return self.to_host().to_pydict(**kw)
+
+
+def _held_nbytes(cols, valid, overflow) -> int:
+    """The allocator bytes a result's tensors hold: each storage once,
+    in the CUDA caching allocator's 512-byte blocks on a card."""
+    tensors = [valid, overflow]
+    for planes in cols.values():
+        tensors.extend(planes)
+    sizes = {}
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            sizes[st.data_ptr()] = (st.nbytes(), t.is_cuda)
+    return sum(-(-n // 512) * 512 if on_card else n
+               for n, on_card in sizes.values())
 
 
 def _charge_decode(stats: QueryStats) -> None:
@@ -343,23 +439,28 @@ class Engine:
     # -- execution -----------------------------------------------------------
     def execute_query(self, query: str, now_ns: int = 0,
                       max_output_rows: int = 10_000, analyze: bool = False,
-                      cancel=None) -> dict:
+                      cancel=None, materialize: bool = True) -> dict:
         """Compile a PxL script and execute it. Returns {output name:
         HostBatch}; ``last_stats`` holds the query's counters.
         ``analyze=True`` is an attribution run (serial, fenced per
         stage); ``cancel`` is an Event-like handle polled per window.
+        ``materialize=False`` leaves each aggregate output on the card
+        as a ``DeviceResult`` (``to_host`` for the rows).
 
         Repeat serving comes first: a valid result-cache entry, then a
-        materialized view, answer without executing. Neither serves an
-        attribution run or a pxtrace script; both are off while
-        ``result_cache_mb`` and ``view_auto_min_runs`` are 0."""
+        materialized view, answer without executing. Neither serves nor
+        stores an attribution run, a device-resident run or a pxtrace
+        script; both are off while ``result_cache_mb`` and
+        ``view_auto_min_runs`` are 0."""
         from ..planner import CompilerState, compile_pxl
         from . import result_cache as rc
 
         # The query's trace starts here, so the compile gets its own
         # span; execute_plan ends it.
         trace = self.tracer.begin_query(script=query, analyze=analyze)
-        servable = not analyze and "pxtrace" not in query
+        # A DeviceResult is the caller's own: never shared through the
+        # cache, never answered from it.
+        servable = materialize and not analyze and "pxtrace" not in query
         cache_on = servable and self.result_cache.enabled()
         disposition = ""
         if cache_on:
@@ -410,6 +511,7 @@ class Engine:
         trace.cache = disposition
         try:
             result = self.execute_plan(compiled.plan, analyze=analyze,
+                                       materialize=materialize,
                                        cancel=cancel, trace=trace)
         finally:
             trace.stats.cache = disposition
@@ -527,14 +629,9 @@ class Engine:
         id: [payloads]}. ``analyze=True`` is an attribution run (fenced
         per stage); ``cancel`` is an Event-like handle polled per window.
         ``trace`` is the query's trace when the caller began one (else a
-        new one starts here); this call ends it. Results are always
-        materialized on the host: device-resident results are not in
-        this slice of the port."""
-        if not materialize:
-            raise NotImplementedError(
-                "device-resident results (materialize=False) are not in "
-                "this slice of the port"
-            )
+        new one starts here); this call ends it. ``materialize=False``
+        returns a ``DeviceResult`` for each aggregate output whose input
+        has no other consumer; every other output is a HostBatch."""
         if trace is None:
             trace = self.tracer.begin_query(
                 script=plan_script(plan), analyze=analyze
@@ -542,7 +639,7 @@ class Engine:
         status, error = "ok", ""
         try:
             return self._execute_plan_scoped(
-                plan, bridge_inputs, trace, cancel
+                plan, bridge_inputs, trace, cancel, materialize
             )
         except QueryCancelled as e:
             status, error = "cancelled", str(e)
@@ -553,8 +650,8 @@ class Engine:
         finally:
             self.tracer.end_query(trace, status=status, error=error)
 
-    def _execute_plan_scoped(self, plan, bridge_inputs, trace,
-                             cancel) -> dict:
+    def _execute_plan_scoped(self, plan, bridge_inputs, trace, cancel,
+                             materialize: bool = True) -> dict:
         stats = trace.stats
         report = getattr(plan, "resource_report", None)
         scratch = _QueryScratch(resource_report=report)
@@ -574,7 +671,8 @@ class Engine:
         tm_token = threadmap.bind(trace=trace, phase="host")
         t0 = time.perf_counter()
         try:
-            return self._execute_plan(plan, stats, cancel, bridge_inputs)
+            return self._execute_plan(plan, stats, cancel, bridge_inputs,
+                                      materialize)
         finally:
             stats.wall_s = time.perf_counter() - t0
             threadmap.unbind(tm_token)
@@ -607,7 +705,8 @@ class Engine:
         return fp
 
     def _execute_plan(self, plan, stats: QueryStats, cancel,
-                      bridge_inputs: dict | None = None) -> dict:
+                      bridge_inputs: dict | None = None,
+                      materialize: bool = True) -> dict:
         results: dict = {}
         outputs: dict = {}
         consumers: dict[int, int] = {}
@@ -619,7 +718,7 @@ class Engine:
             """Materialize a node's result once; shared by its consumers."""
             r = results[nid]
             if not isinstance(r, HostBatch):
-                r = results[nid] = self._run_fragment(r, stats, cancel)
+                r = results[nid] = self._materialize(r, stats, cancel)
             return r
 
         # The bounds pass's envelope (analysis/bounds.py), attached by
@@ -708,7 +807,18 @@ class Engine:
             elif isinstance(op, UnionOp):
                 results[nid] = _union_host([mat_input(i) for i in node.inputs])
             elif isinstance(op, ResultSinkOp):
-                outputs[op.name] = mat_input(node.inputs[0])
+                src = node.inputs[0]
+                r = results[src]
+                if (not materialize and isinstance(r, _Stream)
+                        and consumers.get(src, 0) <= 1):
+                    # An aggregate stays on the card (the readback and
+                    # any rebucket happen in DeviceResult.to_host); a
+                    # row chain comes back as a HostBatch.
+                    outputs[op.name] = self._run_fragment(
+                        r, stats, cancel, defer=True
+                    )
+                else:
+                    outputs[op.name] = mat_input(src)
             elif isinstance(op, TableSinkOp):
                 # px.to_table: the rows land in the named table (created
                 # at the first write), where later queries read them. Not
@@ -946,25 +1056,30 @@ class Engine:
         """Fold the stream through an aggregate fragment and finalize:
         the [G] output planes, their valid mask and the overflow flag,
         all still on the device (the fused join's dense build reads them
-        there; ``_agg_result`` takes them to the host)."""
+        there; ``_agg_result`` takes them to the host). The fragment's
+        record is ``stats.fragments[-1]`` when it returns."""
         stats.new_fragment(stream.chain, frag)
         state = self._fold_agg_state(stream, frag, stats, cancel)
         with _timed(stats, "finalize"):
             return frag.finalize(state)
 
     def _agg_result(self, stream: _Stream, frag, out_cols, valid, overflow,
-                    stats: QueryStats, cancel) -> HostBatch:
+                    stats: QueryStats, cancel, fstats=None) -> HostBatch:
         """A finalized aggregate's rows on the host, rebucketing while it
         overflowed (the JAX engine's retry: more distinct keys than
         max_groups, or an integer key that escaped its stats-derived
         domain): double max_groups, recompile against the stats as they
-        are now and fold the stream again; past max_groups_limit, raise.
-        One read of the overflow flag per fold."""
+        are now and fold the stream again, each attempt a fragment
+        record marked ``rebucket``; past max_groups_limit, raise. One
+        read of the overflow flag per fold. ``fstats`` is the record of
+        the fold that made ``out_cols`` (default: the query's last)."""
+        if fstats is None:
+            fstats = stats.fragments[-1]
         while True:
             with _timed(stats, "finalize"):
                 if not bool(overflow):
                     out = _to_host_batch(frag.out_meta, out_cols, valid)
-                    stats.fragments[-1].rows_out = out.length
+                    fstats.rows_out = out.length
                     break
             del out_cols, valid, overflow
             stream = _double_agg_groups(stream)
@@ -973,15 +1088,32 @@ class Engine:
             out_cols, valid, overflow = self._fold_finalize(
                 stream, frag, stats, cancel
             )
+            fstats = stats.fragments[-1]
+            fstats.ops = fstats.ops + ("rebucket",)
         return _apply_limit(out, frag.limit)
 
-    def _run_fragment(self, stream: _Stream, stats: QueryStats,
-                      cancel) -> HostBatch:
+    def _materialize(self, res, stats: QueryStats, cancel) -> HostBatch:
+        """A node's result as a host batch: a stream runs its fragment, a
+        DeviceResult reads back."""
+        if isinstance(res, HostBatch):
+            return res
+        if isinstance(res, DeviceResult):
+            return res.to_host()
+        return self._run_fragment(res, stats, cancel)
+
+    def _run_fragment(self, stream: _Stream, stats: QueryStats, cancel,
+                      defer: bool = False):
+        """Run a stream's fragment. An aggregate's answer is read back at
+        once, or with ``defer`` left on the card as a ``DeviceResult``;
+        a row chain's windows come back as one HostBatch."""
         frag = self._compile(stream)
         if frag.is_agg:
             out_cols, valid, overflow = self._fold_finalize(
                 stream, frag, stats, cancel
             )
+            if defer:
+                return DeviceResult(self, stream, frag, out_cols, valid,
+                                    overflow, stats, stats.fragments[-1])
             return self._agg_result(stream, frag, out_cols, valid, overflow,
                                     stats, cancel)
         fstats = stats.new_fragment(stream.chain, frag)

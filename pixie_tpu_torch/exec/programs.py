@@ -414,12 +414,21 @@ class DeviceMemoryMonitor:
     With ``device_memory_poll_s`` > 0 a poll thread also samples the
     bytes in use into every open query's peak, as the JAX monitor does.
     A CPU device has no allocator statistics: its bracket returns None.
+
+    A device-resident result (``exec/engine.py`` ``DeviceResult``) holds
+    its bytes here (``hold``) until it is read back or dropped
+    (``release``). A query's peak leaves out the bytes that results of
+    earlier queries held when it began: they are not its own. (Should
+    such a result be released while the query runs, and the peak come
+    after that, the peak reads low by at most those bytes.)
     """
 
     def __init__(self, metrics_registry=None):
         self._metrics_registry = metrics_registry
         self._lock = threading.Lock()
         self._open: list[dict] = []  # live per-query peak tokens
+        self._held: dict[int, tuple] = {}  # hold key -> (device, bytes)
+        self._next_hold = 0
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._collector_installed = False
@@ -442,6 +451,28 @@ class DeviceMemoryMonitor:
                 }
         return out
 
+    # -- device-resident results ---------------------------------------------
+    def hold(self, device, nbytes: int) -> int:
+        """Record ``nbytes`` held on ``device`` by a result that may
+        outlive its query; returns the key ``release`` takes."""
+        with self._lock:
+            self._next_hold += 1
+            key = self._next_hold
+            self._held[key] = (device, int(nbytes))
+        return key
+
+    def release(self, key: int) -> None:
+        with self._lock:
+            self._held.pop(key, None)
+
+    def held_bytes(self, device) -> int:
+        """Bytes held on ``device`` by unreleased results."""
+        with self._lock:
+            return self._held_locked(device)
+
+    def _held_locked(self, device) -> int:
+        return sum(n for d, n in self._held.values() if d == device)
+
     # -- per-query peak attribution (engine execute_plan brackets) -----------
     def query_begin(self, device) -> dict | None:
         """Open a query's bracket on ``device`` (None for a CPU one)."""
@@ -453,13 +484,15 @@ class DeviceMemoryMonitor:
             if not any(t["device"] == device for t in self._open):
                 torch.cuda.reset_peak_memory_stats(device)
             token = {"device": device,
-                     "peak": torch.cuda.memory_allocated(device)}
+                     "peak": torch.cuda.memory_allocated(device),
+                     "carried": self._held_locked(device)}
             self._open.append(token)
         return token
 
     def query_end(self, token: dict | None) -> int | None:
         """The allocator's high-water bytes over the busy period the
-        query ran in (None for a CPU bracket)."""
+        query ran in, less the bytes earlier queries' results held when
+        it began (None for a CPU bracket)."""
         if token is None:
             return None
         import torch
@@ -467,8 +500,9 @@ class DeviceMemoryMonitor:
         with self._lock:
             # Remove by identity: two open tokens may be ==-equal.
             self._open = [t for t in self._open if t is not token]
-            return max(token["peak"],
+            peak = max(token["peak"],
                        torch.cuda.max_memory_allocated(token["device"]))
+            return peak - token["carried"]
 
     # -- gauges + poll loop --------------------------------------------------
     def install_collector(self) -> None:

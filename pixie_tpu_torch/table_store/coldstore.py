@@ -105,7 +105,9 @@ class EncodedPlane:
             return np.repeat(values, lengths)
         if self.kind == "dict":
             codes, base = self.data
-            return (codes.astype(np.int64) + base).astype(self.dtype)
+            out = codes.astype(np.int64)
+            out += base  # in place: an int64 plane is not copied again
+            return out.astype(self.dtype, copy=False)
         raise ValueError(f"unknown encoding {self.kind!r}")
 
 

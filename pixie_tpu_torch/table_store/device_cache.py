@@ -175,11 +175,15 @@ class DeviceWindowCache:
 
 
 def stage_window(table, window_index: int, window_rows: int) -> DeviceWindow | None:
-    """Read window ``window_index`` (rows [k*W, (k+1)*W)), pad it to
-    ``bucket_capacity(W)`` with each type's pad value and place each
-    plane on the table's device in the device dtypes. Returns None for
-    an empty window. On CUDA the copy is asynchronous: callers at append
-    time pay only the host read and pad."""
+    """Read window ``window_index`` (rows [k*W, (k+1)*W)), pad its n rows
+    to ``bucket_capacity(n)`` with each type's pad value and place each
+    plane on the table's device in the device dtypes. A full window pads
+    as ``bucket_capacity(W)``; a partial tail only to its own power of
+    two, so a small table's query copies what its rows need (eager
+    PyTorch keeps no compiled program whose shape a fixed capacity would
+    keep). Returns None for an empty window. On CUDA the copy is
+    asynchronous: callers at append time pay only the host read and
+    pad."""
     lo = window_index * window_rows
     planes, first, n = table.read_rows(
         max(lo, table.first_row_id()), window_rows
@@ -190,7 +194,7 @@ def stage_window(table, window_index: int, window_rows: int) -> DeviceWindow | N
         planes = [p[:n] for p in planes]
     if n <= 0:
         return None
-    cap = bucket_capacity(window_rows)
+    cap = bucket_capacity(n)
     pads, ddts = [], []
     for cname, plane_i in table._plane_layout:
         dt = table.relation.col_type(cname)

@@ -644,25 +644,34 @@ class Table:
 
     def read_rows(self, start_row_id: int, max_rows: int):
         """(planes in ring order, first row id read, rows read), across
-        both tiers. The ring is read first, then the gap below its
-        answer is filled from the cold store: demotion encodes into the
+        both tiers. Rows below the ring's first row come from the cold
+        store, and the ring continues them: demotion encodes into the
         cold store before it drops from the ring, so a row the ring no
-        longer has is cold or truly evicted, never in flight."""
-        h_planes, h_first, h_n = self._backend.read(start_row_id, max_rows)
-        if self._tier is None or h_first <= start_row_id:
-            return h_planes, h_first, h_n
-        want = min(h_first - start_row_id, max_rows)
-        c_planes, c_first, c_n = self._tier.store.read(start_row_id, want)
-        if c_n == 0:
-            return h_planes, h_first, h_n
-        if c_first + c_n == h_first and h_n > 0 and c_n < max_rows:
-            take_h = min(h_n, max_rows - c_n)
-            planes = [
-                np.concatenate([cp, hp[:take_h]])
-                for cp, hp in zip(c_planes, h_planes)
-            ]
-            return planes, c_first, c_n + take_h
-        return c_planes, c_first, c_n
+        longer has is cold or truly evicted, never in flight. A read
+        that starts cold copies no ring rows it does not return (a cold
+        window's read used to copy a whole ring window and drop it)."""
+        if self._tier is not None:
+            ring_first = self._backend.first_row_id()
+            if start_row_id < ring_first:
+                want = min(ring_first - start_row_id, max_rows)
+                c_planes, c_first, c_n = self._tier.store.read(
+                    start_row_id, want
+                )
+                if c_n:
+                    if c_n < max_rows and c_first + c_n == ring_first:
+                        h_planes, h_first, h_n = self._backend.read(
+                            ring_first, max_rows - c_n
+                        )
+                        # The ring may have demoted past ring_first since:
+                        # then only the cold rows are returned.
+                        if h_n and h_first == ring_first:
+                            planes = [
+                                np.concatenate([cp, hp])
+                                for cp, hp in zip(c_planes, h_planes)
+                            ]
+                            return planes, c_first, c_n + h_n
+                    return c_planes, c_first, c_n
+        return self._backend.read(start_row_id, max_rows)
 
     def _row_range(self, start_time, stop_time) -> tuple[int, int]:
         row = (

@@ -14,7 +14,7 @@ from .dtypes import DataType
 class Relation:
     """Immutable ordered schema."""
 
-    __slots__ = ("_names", "_types", "_items")
+    __slots__ = ("_names", "_types", "_items", "_hash")
 
     def __init__(self, columns: Mapping[str, DataType] | Iterable[tuple[str, DataType]] = ()):
         if isinstance(columns, Mapping):
@@ -27,6 +27,7 @@ class Relation:
         self._names: tuple[str, ...] = tuple(names)
         self._types: dict[str, DataType] = {n: t for n, t in items}
         self._items: tuple | None = None  # items_tuple cache
+        self._hash: int | None = None  # __hash__ cache
 
     @property
     def column_names(self) -> tuple[str, ...]:
@@ -86,8 +87,17 @@ class Relation:
             and self._types == other._types
         )
 
+    def __reduce__(self):
+        # Rebuilt from its columns: a cached string hash is only valid in
+        # the process that computed it.
+        return (Relation, (list(self.items()),))
+
     def __hash__(self) -> int:
-        return hash(self.items_tuple())
+        # Cached: memo keys hash every table's relation per compile, and
+        # hashing the DataType members is a Python call per column.
+        if self._hash is None:
+            self._hash = hash(self.items_tuple())
+        return self._hash
 
     def __repr__(self) -> str:
         inner = ", ".join(f"{n}:{t.name}" for n, t in self.items())

@@ -238,6 +238,33 @@ def test_time_scan_across_tier_boundary(ring):
     assert t.row_id_for_time(lo, False) == lo
 
 
+def test_cold_read_copies_no_ring_rows(ring):
+    """A read that lies in the cold tier never reads the ring; one that
+    crosses the boundary reads the ring only from its first row, for
+    the rows it returns; both bit for bit."""
+    t = _tiered(50 * ROW_BYTES)
+    for i in range(8):
+        t.append(_batch(i * 50, 50))
+    ring_first = t._backend.first_row_id()
+    assert ring_first > 64
+    reads = []
+    real = t._backend.read
+
+    def counted(start, n):
+        reads.append((start, n))
+        return real(start, n)
+
+    t._backend.read = counted
+    planes, first, n = t.read_rows(0, 32)
+    assert (first, n, reads) == (0, 32, [])
+    np.testing.assert_array_equal(planes[0], np.arange(32))
+    planes, first, n = t.read_rows(ring_first - 10, 32)
+    assert (first, n) == (ring_first - 10, 32)
+    assert reads == [(ring_first, 22)]
+    np.testing.assert_array_equal(planes[0],
+                                  np.arange(ring_first - 10, ring_first + 22))
+
+
 def test_mid_scan_demotion_race(ring):
     """Rows the cursor has not read yet demote under it: every live row
     is still delivered exactly once, bit for bit."""
