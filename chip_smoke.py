@@ -74,14 +74,36 @@ without them. In order it:
    launches of both kernels (> 0 on http_stats_float64 and
    px/service_stats); then one PEM process is killed (SIGKILL), and once
    the tracker has expired it px/service_stats replans onto 3 PEMs and
-   equals numpy over their quarters. Then ``deploy``: ``python -m
-   pixie_tpu_torch.deploy broker``, two ``pem`` roles with the seq-gen
+   equals numpy over their quarters. Then ``failover``: the same layout
+   (4 PEMs holding the quarters, a Kelvin, each engine on the card)
+   under 2 ``BrokerReplica``s on one bus with the soak's lease clock
+   (0.1 s, expiry 0.5 s, reconcile 0.4 s), every engine, bus and
+   replica built under the port's lockdep; px/service_stats and
+   px/http_stats through ``chaos.failover_executor``, a warm-up and
+   three turns, each held to the single engine's answer, with 4
+   hist_fold launches per PEM per px/service_stats; 8 queries in flight
+   (half of each script) and the leader killed at the first bridge
+   message (a ``FaultInjector.on_match`` trigger): the standby leads
+   within the lease expiry plus two intervals, every in-flight query
+   resolves complete and equal or ``partial`` with ``broker_failover``
+   (the outcome counts and the epoch-fenced dispatches printed), the new
+   leader's next answer of each script is complete and equal; one more
+   turn under duplicated execute dispatches and dropped acks, equal; no
+   lockdep violation, and after teardown the threads and the card's
+   allocated bytes (within one window, 2^21 x 32 bytes) back; the
+   seconds per query with lockdep on beside the cluster phase's with
+   it off. Then the chaos soak (``run_chaos_soak``, 16 agents on the
+   card, 2 brokers, seed 0): ``ok``, 0 lost, 0 leaked threads, 1 leader
+   kill. Then ``deploy``: ``python -m pixie_tpu_torch.deploy broker``
+   (as an HA replica, ``PIXIE_TPU_BROKER_HA=1``, under
+   ``PIXIE_TPU_LOCKDEP=1``), two ``pem`` roles with the seq-gen
    source and a ``kelvin``, each a process on the card; ``python -m
    pixie_tpu_torch.cli run --broker`` answers the sequences group-by,
    its counts over a fixed set of rows summing to the count of the same
    rows without it; ``cli agents`` lists the 3 agents; ``api.Client``
    returns the CLI's table through a record handler; the broker's
-   ``/healthz`` and ``/metrics`` answer 200. Every child's output goes
+   ``/healthz`` and ``/metrics`` answer 200 and its ``/statusz`` carries
+   the ``ha`` block (leader, epoch at least 1). Every child's output goes
    to a file, every wait is bounded, every child is stopped at the end,
    and a child that dies or prints a traceback fails the phase;
 7. the group_by phase: which uint64 ops the card's PyTorch has; a
@@ -3584,6 +3606,7 @@ def phase_cluster(eng, replay, device, window: int = WINDOW,
                 "off_turns": ab[n]["off"],
                 "telemetry_turns": ab[n]["telemetry"]}
                 for n in CL_SCRIPTS}}))
+        out["off_secs"] = {n: float(np.median(ab[n]["off"])) for n in CL_SCRIPTS}
         live = cl_expiry_and_live(c, replay, window, quarter)
         if device.type == "cuda":
             assert live > 0, "the live query launched no hist_fold"
@@ -4297,7 +4320,9 @@ def _free_port() -> int:
 
 def phase_deploy(device) -> None:
     """The system started the way its users start it:
-    ``python -m pixie_tpu_torch.deploy broker``, two ``pem`` roles with
+    ``python -m pixie_tpu_torch.deploy broker`` (one broker-HA replica,
+    under lockdep: its ``/statusz`` shows the leader at epoch 1 or
+    more), two ``pem`` roles with
     the seq-gen source (``PIXIE_TPU_SEQGEN=1``) and one ``kelvin``, each
     a process on the card. ``python -m pixie_tpu_torch.cli run --broker``
     answers the sequences group-by of ``tests/test_cli.py``'s deploy
@@ -4340,8 +4365,12 @@ def phase_deploy(device) -> None:
         return r.stdout
 
     try:
+        # The broker as one replica of an HA control plane, its locks
+        # under lockdep.
         kids.start("broker", [sys.executable, "-m", "pixie_tpu_torch.deploy",
-                              "broker"], env)
+                              "broker"],
+                   {**env, "PIXIE_TPU_BROKER_HA": "1",
+                    "PIXIE_TPU_LOCKDEP": "1"})
         for aid in pems:
             kids.start(aid, [sys.executable, "-m", "pixie_tpu_torch.deploy",
                              "pem"],
@@ -4404,6 +4433,11 @@ def phase_deploy(device) -> None:
         for path in ("/healthz", "/metrics"):
             code, _body = pr_scrape(obs, path)
             assert code == 200, (path, code)
+        code, body = pr_scrape(obs, "/statusz")
+        assert code == 200, code
+        ha = json.loads(body)["ha"]
+        assert ha["role"] == "leader" and ha["epoch"] >= 1, ha
+        timings["ha"] = ha
         code, body = pr_scrape(obs, "/debug/programz")
         assert code == 200, code
         pz = json.loads(body)
@@ -4419,8 +4453,309 @@ def phase_deploy(device) -> None:
                       "cli_s": timings.get("cli_s"),
                       "profile": timings.get("profile"),
                       "broker_programz": timings.get("programz"),
+                      "broker_ha": timings.get("ha"),
                       "exit_codes": rcs,
                       "secs": time.perf_counter() - t_phase}))
+
+
+# -- the failover phase: broker HA, faults and lockdep on one card -------------
+FO_BROKERS = 2
+FO_LEASE_FLAGS = {"broker_lease_interval_s": 0.1, "broker_lease_expiry_s": 0.5,
+                  "broker_reconcile_wait_s": 0.4,
+                  "broker_reattach_timeout_s": 8.0}
+FO_SCRIPTS = ("px/service_stats", "px/http_stats")
+FO_INFLIGHT = 8  # queries in flight at the leader kill, half of each script
+FO_TIMEOUT_S = 20.0  # the soak's query timeout
+FO_SOAK_AGENTS = 16
+FO_HIST_PER_PEM = 4  # hist_fold launches per PEM per px/service_stats
+
+
+def fo_check(pems, name: str, res, ref) -> None:
+    """A served answer (``broker.execute``'s reply) against the single
+    engine's: complete, every PEM a data shard (a query the successor
+    adopted may have lost its agents' stats in the takeover gap: its
+    merged tables are what it is held to), each output held as the
+    cluster phase holds it."""
+    ref, loose, ordered = ref
+    assert res.get("ok") and res["partial"] is False, (name, res)
+    if not res.get("failover"):
+        assert sorted(res["agent_stats"]) == sorted(
+            p.agent_id for p in pems), (name, sorted(res["agent_stats"]))
+    assert sorted(res["tables"]) == sorted(ref), name
+    for k in ref:
+        check_library_output(f"failover {name}:{k}", res["tables"][k], ref[k],
+                             loose[k], ordered)
+
+
+def fo_hist_per_pem(pems) -> dict:
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    return {p.agent_id: hist_fold.launches_by_thread.get(
+        f"bus-sub-agent.{p.agent_id}.execute", 0) for p in pems}
+
+
+def phase_failover(eng, replay, device, window: int = WINDOW,
+                   quarter: int = CL_QUARTER, turns: int = CL_TURNS,
+                   off_secs: dict | None = None,
+                   soak_agents: int = FO_SOAK_AGENTS) -> dict:
+    """The cluster phase's layout at full size (4 PEMs holding the main
+    replay in quarters, a Kelvin) under 2 ``BrokerReplica``s on one bus,
+    with the soak's fast lease clock, every lock built under the port's
+    lockdep. A warm-up and ``turns`` healthy turns of px/service_stats
+    and px/http_stats through ``chaos.failover_executor``, each held to
+    the single engine ``eng``; then FO_INFLIGHT queries in flight and
+    the leader killed at the first bridge message (a
+    ``FaultInjector.on_match`` trigger): the standby's takeover inside
+    the lease bound, every in-flight answer complete and equal or
+    ``partial`` with ``broker_failover``, the epoch-fenced dispatches,
+    the new leader's next answer of each script, and hist_fold's
+    launches per PEM; then one more turn under duplicated execute
+    dispatches and dropped acks. After teardown: no lockdep violation,
+    the threads and the card's allocated bytes back. Then the chaos
+    soak with ``soak_agents`` agents on ``device``. Returns the kernels'
+    launches and the phase's numbers."""
+    import contextlib
+    import gc
+    import threading
+
+    import torch
+
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.analysis import lockdep
+    from pixie_tpu_torch.config import override_flag
+    from pixie_tpu_torch.services import FaultInjector, KelvinAgent, MessageBus, PEMAgent
+    from pixie_tpu_torch.services.broker_ha import BrokerReplica
+    from pixie_tpu_torch.services.chaos import (
+        _Ledger, failover_executor, run_chaos_soak)
+    from pixie_tpu_torch.services.observability import default_counter
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    refs = {name: cl_reference(eng, name) for name in FO_SCRIPTS}
+    gc.collect()
+    threads_before = threading.active_count()
+    mem_before = torch.cuda.memory_allocated(device) if on_card else 0
+    fenced = default_counter("pixie_epoch_fenced_total")
+    out = {"phase": "failover", "brokers": FO_BROKERS, "pems": CL_PEMS,
+           "rows_per_pem": quarter}
+    st = lockdep.enable()  # before any engine, bus or replica is built
+    bus, replicas, agents = None, [], []
+    try:
+        with contextlib.ExitStack() as flags:
+            for flag, value in {"self_telemetry": False,
+                                "self_profiling": False,
+                                **FO_LEASE_FLAGS}.items():
+                flags.enter_context(override_flag(flag, value))
+            bus = MessageBus()
+            replicas = [BrokerReplica(
+                bus, f"broker-{i}", leader=i == 0,
+                tracker_kw=dict(expiry_s=60.0, check_interval_s=60.0))
+                for i in range(FO_BROKERS)]
+            pems = []
+            for i in range(CL_PEMS):
+                pems.append(PEMAgent(
+                    bus, f"pem-{i}", engine=Engine(window_rows=window,
+                                                   device=device),
+                    heartbeat_interval_s=CL_HEARTBEAT_S))
+                agents.append(pems[-1].start())
+            kelvin = KelvinAgent(bus, "kelvin-0",
+                                 engine=Engine(window_rows=window, device=device),
+                                 heartbeat_interval_s=CL_HEARTBEAT_S)
+            agents.append(kelvin.start())
+            t0 = time.perf_counter()
+            for i, pem in enumerate(pems):
+                for hb in cl_batches(replay, i, i * quarter, (i + 1) * quarter,
+                                     window, i * quarter):
+                    pem.append_data("http_events", hb)
+                pem._register()
+            pem = hb = None  # the teardown's memory check counts references
+            out["append_s"] = time.perf_counter() - t0
+            r0, r1 = replicas
+            deadline = time.monotonic() + 30.0
+            while not ("http_events" in r0.tracker.schemas()
+                       and len(r0.tracker.agent_ids()) == len(agents)
+                       and r1.epoch >= r0.epoch):
+                assert time.monotonic() < deadline, "HA cluster never converged"
+                time.sleep(0.01)
+            execute = failover_executor(bus)
+
+            def run(name, **kw):
+                t = time.perf_counter()
+                res = execute(query_text(name), FO_TIMEOUT_S, **kw)
+                return res, time.perf_counter() - t
+
+            # Warm-up, then the healthy turns.
+            secs = {}
+            for name in FO_SCRIPTS:
+                run(name)
+                _zero_launches()
+                secs[name] = []
+                for _ in range(turns):
+                    res, s = run(name)
+                    fo_check(pems, name, res, refs[name])
+                    secs[name].append(s)
+                if on_card and name == "px/service_stats":
+                    per = fo_hist_per_pem(pems)
+                    assert per == {p.agent_id: FO_HIST_PER_PEM * turns
+                                   for p in pems}, per
+                    out["peak_bytes_healthy"] = {
+                        a: st_["usage"].get("device_peak_bytes")
+                        for a, st_ in res["agent_stats"].items()}
+            out["healthy_secs"] = {n: float(np.median(v)) for n, v in secs.items()}
+            out["healthy_turns"] = secs
+            if off_secs:
+                out["cluster_off_secs"] = {n: off_secs.get(n) for n in FO_SCRIPTS}
+
+            # The leader kill with FO_INFLIGHT queries in flight.
+            first_bridge = threading.Event()
+            inj = FaultInjector(seed=0)
+            inj.on_match("agent.*.bridge", lambda _t, _m: first_bridge.set())
+            bus.fault_injector = inj
+            ledger = _Ledger()
+            counted = failover_executor(bus, ledger)
+            fenced_before = fenced.value()
+            _zero_launches()
+            names = [FO_SCRIPTS[i % 2] for i in range(FO_INFLIGHT)]
+            results = [None] * FO_INFLIGHT
+
+            def submit(i):
+                try:
+                    results[i] = counted(query_text(names[i]), FO_TIMEOUT_S)
+                except Exception as e:  # judged below, never swallowed
+                    results[i] = e
+
+            workers = [threading.Thread(target=submit, args=(i,))
+                       for i in range(FO_INFLIGHT)]
+            for w in workers:
+                w.start()
+            assert first_bridge.wait(60.0), "no bridge message"
+            t_kill = time.monotonic()
+            r0.kill()
+            while r1.role != "leader":
+                assert time.monotonic() - t_kill < 10.0, "no takeover"
+                time.sleep(0.005)
+            takeover_s = time.monotonic() - t_kill
+            bound_s = (FO_LEASE_FLAGS["broker_lease_expiry_s"]
+                       + 2 * FO_LEASE_FLAGS["broker_lease_interval_s"])
+            for w in workers:
+                w.join(timeout=4 * FO_TIMEOUT_S)
+            assert not any(w.is_alive() for w in workers), "a query hung"
+            outcomes = {"complete": 0, "broker_failover": 0}
+            for name, res in zip(names, results):
+                assert isinstance(res, dict), (name, res)
+                if res["partial"]:
+                    assert set(res["missing_reasons"].values()) == {
+                        "broker_failover"}, (name, res["missing_reasons"])
+                    outcomes["broker_failover"] += 1
+                else:
+                    fo_check(pems, name, res, refs[name])
+                    outcomes["complete"] += 1
+            kill_hist = fo_hist_per_pem(pems)
+            if on_card:
+                assert all(n > 0 and n % FO_HIST_PER_PEM == 0
+                           for n in kill_hist.values()), kill_hist
+            out.update({
+                "takeover_s": takeover_s, "takeover_bound_s": bound_s,
+                "epoch": r1.epoch, "outcomes": outcomes,
+                "adopted": sum(bool(r.get("failover")) for r in results),
+                "failover_retries": ledger.snapshot()["failover_retries"],
+                "epoch_fenced": fenced.value() - fenced_before,
+                "kill_hist_fold_per_pem": kill_hist,
+            })
+            print(json.dumps({"phase": "failover_kill", **{
+                k: out[k] for k in ("takeover_s", "takeover_bound_s", "epoch",
+                                    "outcomes", "adopted", "failover_retries",
+                                    "epoch_fenced", "kill_hist_fold_per_pem")}}))
+            assert takeover_s <= bound_s, (takeover_s, bound_s)
+            assert r1.epoch > 1
+            bus.fault_injector = None
+
+            # The new leader's next answer of each script.
+            after = {}
+            for name in FO_SCRIPTS:
+                _zero_launches()
+                res, s = run(name)
+                fo_check(pems, name, res, refs[name])
+                after[name] = s
+                if on_card and name == "px/service_stats":
+                    per = fo_hist_per_pem(pems)
+                    assert per == {p.agent_id: FO_HIST_PER_PEM
+                                   for p in pems}, per
+                    # The abandoned queries' bytes are not charged to the
+                    # new leader's first query (DeviceMemoryMonitor).
+                    out["peak_bytes_after"] = {
+                        a: st_["usage"].get("device_peak_bytes")
+                        for a, st_ in res["agent_stats"].items()}
+                    for a, peak in out["peak_bytes_after"].items():
+                        assert peak <= out["peak_bytes_healthy"][a] + (
+                            WINDOW * ROW_BYTES), (a, out["peak_bytes_after"],
+                                                  out["peak_bytes_healthy"])
+            out["new_leader_secs"] = after
+            assert bus.request("broker.agents", {},
+                               timeout_s=5.0)["broker"] == "broker-1"
+
+            # Bus faults: duplicated execute dispatches and dropped acks
+            # (the dispatch retry re-sends, the agents' dedup re-acks).
+            inj2 = FaultInjector(seed=0)
+            inj2.duplicate("agent.*.execute")
+            inj2.drop("query.*.ack", count=2)
+            bus.fault_injector = inj2
+            _zero_launches()
+            for name in FO_SCRIPTS:
+                res, _s = run(name)
+                fo_check(pems, name, res, refs[name])
+            bus.fault_injector = None
+            out["bus_faults"] = {"duplicated": inj2.fired("duplicate"),
+                                 "acks_dropped": inj2.fired("drop")}
+            assert inj2.fired("drop") == 2 and inj2.fired("duplicate") > 0
+            if on_card:
+                per = fo_hist_per_pem(pems)
+                assert per == {p.agent_id: FO_HIST_PER_PEM for p in pems}, per
+                out["bus_faults"]["hist_fold_per_pem"] = per
+    finally:
+        if bus is not None:
+            bus.fault_injector = None
+        for a in agents:
+            a.stop()
+        for r in replicas:
+            if not r._dead:
+                r.close()
+        if bus is not None:
+            bus.close()
+        lockdep.disable()
+    out["lockdep"] = {"tracked_locks": st.tracked_locks, "edges": len(st.edges),
+                      "violations": len(st.violations)}
+    assert st.violations == [], "\n---\n".join(str(v) for v in st.violations)
+    del agents, pems, kelvin, replicas, bus, results
+    deadline = time.monotonic() + 12.0
+    while threading.active_count() > threads_before:
+        assert time.monotonic() < deadline, [t.name for t in threading.enumerate()]
+        time.sleep(0.2)
+    gc.collect()
+    out["threads"] = {"before": threads_before,
+                      "after": threading.active_count()}
+    if on_card:
+        mem_after = torch.cuda.memory_allocated(device)
+        out["allocated"] = {"before": mem_before, "after": mem_after}
+        assert mem_after <= mem_before + WINDOW * ROW_BYTES, out["allocated"]
+    out["secs"] = time.perf_counter() - t_phase
+    print(json.dumps(out))
+
+    t0 = time.perf_counter()
+    report = run_chaos_soak(n_agents=soak_agents, n_brokers=2, seed=0,
+                            device=device)
+    d = report.to_dict()
+    print(json.dumps({"phase": "failover_soak", "secs": time.perf_counter() - t0,
+                      "report": d}))
+    assert report.ok and report.lost == [] and not report.thread_leak, d
+    assert report.leader_kills == 1 and report.failovers >= 1, d
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"hist_fold": {"per_pem_per_query": FO_HIST_PER_PEM,
+                          "leader_kill": out["kill_hist_fold_per_pem"]},
+            "takeover_s": out["takeover_s"], "outcomes": out["outcomes"],
+            "epoch_fenced": out["epoch_fenced"]}
 
 
 # -- device-resident results, the port's bench and its gates --------------------
@@ -4684,6 +5019,7 @@ def main() -> int:
     for k in kernels:
         k["launches_device_result"] = device_result[k["name"]]
     elapsed("window path and device results")
+    hist = next(k for k in kernels if k["name"] == "hist_fold")
     # Agent mode, held to ``eng`` before the tail grows its table.
     cluster = phase_cluster(eng, replay, device)
     for k in kernels:
@@ -4696,6 +5032,12 @@ def main() -> int:
     for k in kernels:
         k["launches_processes"] = processes[k["name"]]
     elapsed("processes")
+    # The same layout under two broker replicas, lockdep and faults, the
+    # leader killed mid-flight; then the chaos soak.
+    failover = phase_failover(eng, replay, device,
+                              off_secs=cluster["off_secs"])
+    hist["launches_failover"] = failover["hist_fold"]
+    elapsed("failover")
     phase_deploy(device)
     elapsed("deploy")
     phase_tail(eng, replay)
@@ -4709,7 +5051,6 @@ def main() -> int:
     elapsed("serving")
     # hist_fold's launches in the group_by phase's quantile query, per
     # groupby_impl form (``launches`` stays the steady state's count).
-    hist = next(k for k in kernels if k["name"] == "hist_fold")
     hist["launches_group_by"] = phase_group_by(device)
     elapsed("group_by and metadata")
     gc.collect()

@@ -18,10 +18,12 @@ Three gates replay the bench's shapes (each a ``python -m`` entry):
 PEMs and a Kelvin), ``obs_check`` (the same for the self-monitoring
 scripts over the telemetry schemas) and ``bound_check`` (observed usage
 within the predicted bounds on the engine's device, the over-budget
-refusal, the memoized pass under 5% of a compile). The source lint and
-lockdep are a later slice.
+refusal, the memoized pass under 5% of a compile). ``lockdep`` is the
+runtime lock-order validator (``lockdep.enable()`` before anything
+builds its locks). The source lint is a later slice.
 """
 
+from . import lockdep
 from .bounds import (
     PlanResourceReport,
     apply_plan_bounds,
@@ -42,6 +44,7 @@ from .verifier import (
 )
 
 __all__ = [
+    "lockdep",
     "Diagnostic",
     "PlanCheckError",
     "PlanResourceReport",

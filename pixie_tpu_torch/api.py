@@ -17,8 +17,11 @@ HostBatches and are surfaced row-wise through handlers or as pydicts.
         def handle_record(self, record): print(record)
     client.execute_script(pxl, handler_factory=lambda t: Printer())
 
-A port of the JAX package's ``api.py``. Not in this slice: the broker-HA
-leader lookup (``services/broker_ha.py``).
+A port of the JAX package's ``api.py``. Under broker HA
+(``services/broker_ha.py``) ``resolve_leader`` names the current leader,
+idempotent requests are retried through a failover window, and a lost
+``execute_script`` reply raises a structured error naming the leader to
+resubmit to (never retried).
 """
 
 from __future__ import annotations
@@ -28,10 +31,10 @@ from typing import Callable, Optional
 #: Control-plane requests that are safe to retry on a BusTimeout: pure
 #: reads with no side effects. broker.execute is deliberately NOT here
 #: — re-running a script blind could double-execute mutations; it
-#: surfaces a structured error instead.
+#: re-resolves the leader and surfaces a structured error instead.
 _IDEMPOTENT_TOPICS = frozenset({
     "broker.scripts", "broker.schemas", "broker.agents",
-    "broker.debug_queries", "broker.profile",
+    "broker.debug_queries", "broker.profile", "broker.leader",
 })
 
 
@@ -152,11 +155,17 @@ class Client:
 
     def agents_status(self) -> dict:
         """Like :meth:`agents` but returns the full reply, including
-        ``broker`` — which broker answered (empty on a single-broker
-        deploy). The `px agents` surface."""
+        ``broker`` — WHICH broker replica answered (broker HA; empty on
+        a plain single-broker deploy). The `px agents` surface."""
         res = self._request("broker.agents", {})
         return {"agents": res.get("agents", []),
                 "broker": res.get("broker", "")}
+
+    def resolve_leader(self, timeout_s: float = 2.0) -> dict:
+        """Current broker-HA leader as every replica last saw it:
+        ``{"broker": id, "epoch": n, "role": ..., "answered_by": id}``.
+        Raises on a non-HA deploy (nobody serves ``broker.leader``)."""
+        return self._request("broker.leader", {}, timeout_s=timeout_s)
 
     # -- execution -----------------------------------------------------------
     def execute_script(
@@ -205,10 +214,23 @@ class Client:
             )
         except BusTimeout as e:
             # NEVER blind-retried: execute is non-idempotent (duplicate
-            # compute, mutations).
+            # compute, mutations). Re-resolve the leader so the
+            # structured error tells the caller where to resubmit.
+            leader = ""
+            try:
+                info = self.resolve_leader()
+                leader = str(info.get("broker", ""))
+            except Exception:
+                pass
+            hint = (
+                f" (current leader: {leader}; resubmit to it)"
+                if leader else
+                " (no broker leader answered; the cluster may be "
+                "mid-failover)"
+            )
             raise ScriptExecutionError(
                 f"execute_script got no reply and was not retried "
-                f"(non-idempotent): {e}"
+                f"(non-idempotent){hint}: {e}"
             ) from e
         out = ScriptResults()
         out.partial = bool(res.get("partial"))

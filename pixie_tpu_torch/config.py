@@ -281,6 +281,32 @@ define_flag(
     "Initial backoff for api.Client idempotent-request retries; "
     "doubles per attempt (capped at 2s) with +0..25% jitter.",
 )
+# -- broker HA (services/broker_ha.py) ----------------------------------------
+define_flag(
+    "broker_lease_interval_s", 0.5,
+    "Cadence of the leader's broker.lease heartbeat and of each "
+    "standby's expiry check / presence announcement.",
+)
+define_flag(
+    "broker_lease_expiry_s", 2.0,
+    "Lease age past which a standby declares the leader dead and the "
+    "lowest-id standby claims the next epoch (each higher-ranked "
+    "standby waits one extra lease interval before claiming).",
+)
+define_flag(
+    "broker_reconcile_wait_s", 0.5,
+    "How long a freshly elected leader collects agents' answers to the "
+    "broker.reconcile probe before resolving the deposed leader's "
+    "in-flight queries (re-attach vs partial/broker_failover).",
+)
+define_flag(
+    "broker_reattach_timeout_s", 15.0,
+    "Forwarder wait budget for a re-attached failover query on the new "
+    "leader; the inactivity watchdog inside the wait bounds a truly "
+    "dead query well before this.",
+)
+
+# -- agent mode, continued ------------------------------------------------------
 define_flag(
     "dispatch_retries", 3,
     "Re-publishes of an un-acked fragment dispatch before the broker "
@@ -437,6 +463,18 @@ define_flag(
     "(px/perf_flamegraph), and serve merged flames via "
     "/debug/pprof + /debug/flamez. Off = no sampling thread work "
     "at all.",
+)
+# -- concurrency verification (analysis/lockdep.py) --------------------------
+define_flag(
+    "lockdep", False,
+    "Runtime lock-order validation (Linux-lockdep style): wraps "
+    "threading.Lock/RLock/Condition creation, maintains per-thread "
+    "held-stacks and a process-wide observed acquisition-order graph, "
+    "and raises (with both stack pairs) at the first acquisition that "
+    "would close a cycle. Test/deploy instrumentation — off by "
+    "default, zero overhead when off (the raw C lock types are "
+    "untouched). run_tests.sh --locks runs the concurrency suites "
+    "under it; deploy roles honor it at process start.",
 )
 define_flag(
     "profile_summary_stacks", 512,

@@ -20,9 +20,13 @@ non-zero with the engine's error; nothing carries on on the CPU. Every
 role samples its own stacks under the ``self_profiling`` flag
 (``PIXIE_TPU_SELF_PROFILING``, on by default) and serves them at
 ``/debug/pprof`` and ``/debug/flamez``; agents fold self-telemetry under
-``self_telemetry``. Not in this slice, and refused when asked for:
-broker HA (``PIXIE_TPU_BROKER_HA``), the operator role and lockdep
-(``PIXIE_TPU_LOCKDEP``).
+``self_telemetry``. ``PIXIE_TPU_BROKER_HA=1`` makes ``broker`` one
+replica of an N-broker control plane (``services/broker_ha.py``;
+``PIXIE_TPU_BROKER_ID`` names it, ``PIXIE_TPU_BROKER_ROLE=standby``
+boots it as a mirror), and ``PIXIE_TPU_LOCKDEP=1`` (the ``lockdep``
+flag) enables runtime lock-order validation before any role builds its
+engine. Not in this slice, and refused when asked for: the operator
+role.
 """
 
 from __future__ import annotations
@@ -35,13 +39,6 @@ import threading
 #: The environment variable that names the device of every role's engine
 #: (and of ``cli run --local``): unset means the CUDA card.
 DEVICE_ENV = "PIXIE_TPU_TORCH_DEVICE"
-
-#: Options of the JAX package's deploy roles that wait for a later slice
-#: of the port: {environment variable: what it asks for}.
-_LATER_SLICES = {
-    "PIXIE_TPU_BROKER_HA": "broker HA (services/broker_ha.py)",
-    "PIXIE_TPU_LOCKDEP": "lockdep (analysis/lockdep.py)",
-}
 
 
 def env_device():
@@ -73,11 +70,37 @@ def run_broker() -> int:
     from .services.tracker import AgentTracker
 
     bus = MessageBus()
-    tracker = AgentTracker(bus)
-    broker = QueryBroker(bus, tracker)
+    # Broker HA (PIXIE_TPU_BROKER_HA=1): this process is one replica of
+    # an N-broker control plane — PIXIE_TPU_BROKER_ID names it,
+    # PIXIE_TPU_BROKER_ROLE=standby boots it as a lease-watching mirror
+    # (default: leader). Standbys fold the leader's broker.state log
+    # and take over in-flight queries when the lease lapses.
+    replica = None
+    if os.environ.get("PIXIE_TPU_BROKER_HA"):
+        from .services.broker_ha import BrokerReplica
+
+        replica = BrokerReplica(
+            bus,
+            os.environ.get("PIXIE_TPU_BROKER_ID", "broker-0"),
+            leader=os.environ.get(
+                "PIXIE_TPU_BROKER_ROLE", "leader"
+            ) != "standby",
+        )
+        tracker, broker = replica.tracker, replica.broker
+    else:
+        tracker = AgentTracker(bus)
+        broker = QueryBroker(bus, tracker)
+        broker.serve()
     broker.tracepoints = TracepointRegistry(bus, tracker)
-    broker.serve()
     runner = ScriptRunner(broker)
+    if replica is not None:
+        # Cron scripts run on the LEADER only — a standby executing the
+        # same schedule would double-run every script cluster-wide. The
+        # gate follows failover: a promoted standby starts ticking.
+        _tick = runner.tick
+        runner.tick = (
+            lambda: _tick() if replica.role == "leader" else None
+        )
     runner.run_forever()
     netbus_port = int(os.environ.get("PIXIE_TPU_NETBUS_PORT", "6100"))
     server = BusServer(bus, host="0.0.0.0", port=netbus_port)
@@ -93,6 +116,10 @@ def run_broker() -> int:
             "tables": sorted(tracker.schemas()),
             "quarantined": tracker.quarantined(),
         }
+        if replica is not None:
+            # HA role/epoch/lease-age/replay-lag on every replica's
+            # /statusz (leader AND standbys serve obs).
+            out["ha"] = replica.statusz()
         if prof_coll is not None:
             beta = prof_store.get_table("stack_traces.beta")
             out["profiler"] = {
@@ -139,8 +166,11 @@ def run_broker() -> int:
     obs.stop()
     server.close()
     broker.tracepoints.close()
-    broker.close()
-    tracker.close()
+    if replica is not None:
+        replica.close()
+    else:
+        broker.close()
+        tracker.close()
     bus.close()
     return 0
 
@@ -388,12 +418,6 @@ def main(argv=None) -> int:
         print(f"usage: python -m pixie_tpu_torch.deploy "
               f"{{{'|'.join(roles)}}}", file=sys.stderr)
         return 2
-    for var, what in _LATER_SLICES.items():
-        if os.environ.get(var, "").strip().lower() in ("1", "true", "yes",
-                                                        "on"):
-            print(f"[{args[0]}] {var} asks for {what}, which is not in "
-                  "this slice of the port", file=sys.stderr)
-            return 2
     # Crash machinery before anything else (signal_action.h parity):
     # hard faults dump stacks to the crash log, uncaught exceptions run
     # registered last-gasp handlers. SIGTERM stays with _wait_forever's
@@ -410,6 +434,15 @@ def main(argv=None) -> int:
         print(f"[{args[0]}] {e} ({DEVICE_ENV}=cpu runs the role on the "
               "CPU)", file=sys.stderr)
         return 1
+    # Runtime lock-order validation: with the lockdep flag set, enable
+    # BEFORE the role constructs any engine/broker/agent — only locks
+    # created after enable() are tracked.
+    from .config import get_flag
+
+    if get_flag("lockdep"):
+        from .analysis import lockdep
+
+        lockdep.enable()
     return roles[args[0]]()
 
 

@@ -12,15 +12,21 @@ over gRPC.
 A port of the JAX package's ``services/``. Agents in other processes dial
 the broker's bus over the framed-TCP netbus (``netbus.py``, frames in the
 ``wire.py`` codec); ``deploy.py`` starts the roles. Agents fold their
-own traces into telemetry tables (``telemetry.py``). Broker HA and fault
-injection are later slices.
+own traces into telemetry tables (``telemetry.py``). ``BrokerReplica``
+(``broker_ha.py``) runs N brokers on one bus with leases, epoch fencing
+and failover of in-flight queries; ``FaultInjector`` (``faults.py``)
+drops, delays, duplicates and partitions bus traffic from one seeded
+RNG; ``load_tester.py`` and ``chaos.py`` drive them under load.
 """
 
 from .agent import Agent, KelvinAgent, PEMAgent
+from .broker_ha import BrokerReplica
+from .faults import FaultInjector
 from .msgbus import BusTimeout, MessageBus
 from .query_broker import (
     AdmissionError,
     AgentLost,
+    QueryAbandoned,
     QueryBroker,
     QueryResultForwarder,
     QueryTimeout,
@@ -37,11 +43,14 @@ __all__ = [
     "Agent",
     "AgentLost",
     "AgentTracker",
+    "BrokerReplica",
     "BusTimeout",
     "ClusterTraceView",
+    "FaultInjector",
     "KelvinAgent",
     "MessageBus",
     "PEMAgent",
+    "QueryAbandoned",
     "QueryBroker",
     "QueryResultForwarder",
     "QueryTimeout",

@@ -15,8 +15,9 @@ histograms, per-subscription queue-depth high-water marks (the
 backpressure signal), handler-error counts, and a slow-handler log —
 monotonic clock reads only on the hot path, served via ``busz()``.
 
-A copy of the JAX package's ``services/msgbus.py`` without the fault
-injector's hook (fault injection is a later slice of the port).
+A copy of the JAX package's ``services/msgbus.py``. A
+``faults.FaultInjector`` attached as ``fault_injector`` decides each
+publish's delivery plan (drop, delay, duplicate, trigger hooks).
 """
 
 from __future__ import annotations
@@ -154,6 +155,9 @@ class MessageBus:
         self.stats: BusStats | None = (
             BusStats() if get_flag("bus_telemetry") else None
         )
+        # Optional faults.FaultInjector consulted on every publish
+        # (drop/delay/duplicate + trigger hooks); None = no faults.
+        self.fault_injector = None
 
     def subscribe(self, topic: str, fn: Callable) -> Subscription:
         sub = Subscription(self, topic, fn)
@@ -164,6 +168,11 @@ class MessageBus:
     def publish(self, topic: str, msg: dict) -> int:
         """Fan out to all subscribers; returns the number delivered to.
 
+        With a fault injector attached, the injector decides the
+        delivery plan (drop/delay/duplicate); the returned count is the
+        SUBSCRIBER count regardless — a NATS publisher can't observe
+        in-flight loss either.
+
         Trace-context envelope: a publish from inside a traced scope
         (an explicit ``tracectx.bound`` or a handler delivering a
         context-stamped message) stamps the ambient context onto the
@@ -172,6 +181,19 @@ class MessageBus:
         st = self.stats
         nbytes = st.on_publish(topic, msg)[1] if st is not None else 0
         msg = tracectx.attach(msg)
+        inj = self.fault_injector
+        if inj is not None:
+            for delay_s in inj.intercept(topic, msg):
+                if delay_s <= 0:
+                    self._fanout(topic, msg, nbytes)
+                else:
+                    t = threading.Timer(
+                        delay_s, self._fanout, (topic, msg, nbytes)
+                    )
+                    t.daemon = True
+                    t.start()
+            with self._lock:
+                return len(self._subs.get(topic, []))
         return self._fanout(topic, msg, nbytes)
 
     def _fanout(self, topic: str, msg: dict, nbytes: int = 0) -> int:

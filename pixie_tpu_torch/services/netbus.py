@@ -17,10 +17,12 @@ endpoints count frames/bytes per peer and direction off ``_send_frame``
 the send lock, and connect/drop/auth-failure events — the cluster's
 wire-byte ground truth, served via ``busz()`` / ``/debug/busz``.
 
-A port of the JAX package's ``services/netbus.py`` without the fault
-injector's hook on ``RemoteBus.publish`` and without ``RemoteBus.sever``
-(fault injection is a later slice of the port, as for ``msgbus.py``). Frames carry only host values:
-``wire.encode`` refuses a ``torch.Tensor``.
+A port of the JAX package's ``services/netbus.py``. As on
+``MessageBus``, a ``faults.FaultInjector`` attached to a ``RemoteBus`` as
+``fault_injector`` decides each publish's delivery plan, and
+``RemoteBus.sever`` hard-cuts the connection (a mid-flight partition).
+Frames carry only host values: ``wire.encode`` refuses a
+``torch.Tensor``.
 """
 
 from __future__ import annotations
@@ -480,6 +482,10 @@ class RemoteBus:
         self._handlers: dict[int, object] = {}  # sid -> callable
         self._next_sid = 1
         self._closed = threading.Event()
+        # Optional faults.FaultInjector consulted on every publish
+        # (mirrors MessageBus.fault_injector; netbus frames are the
+        # injection point for remote-agent fault tests).
+        self.fault_injector = None
         # Mint a token from the shared secret when the caller brings
         # none (deploy processes share the bus_secret flag/env).
         if token is None and get_flag("bus_secret"):
@@ -524,6 +530,19 @@ class RemoteBus:
         if self.stats is not None:
             self.stats.on_publish(topic, msg)
         msg = tracectx.attach(msg)  # envelope parity with MessageBus
+        inj = self.fault_injector
+        if inj is not None:
+            for delay_s in inj.intercept(topic, msg):
+                if delay_s <= 0:
+                    self._send({"op": "pub", "topic": topic, "msg": msg})
+                else:
+                    t = threading.Timer(
+                        delay_s, self._send,
+                        ({"op": "pub", "topic": topic, "msg": msg},),
+                    )
+                    t.daemon = True
+                    t.start()
+            return 1
         self._send({"op": "pub", "topic": topic, "msg": msg})
         return 1
 
@@ -556,6 +575,19 @@ class RemoteBus:
             ) from None
         finally:
             sub.unsubscribe()
+
+    def sever(self) -> None:
+        """Hard-cut the connection WITHOUT the orderly close bookkeeping
+        a caller would run — the fault-injection analog of a mid-flight
+        network partition. The read loop sees EOF/reset and reaps."""
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self.sock.close()
+        except OSError:
+            pass
 
     def _unsubscribe(self, sid: int) -> None:
         with self._lock:

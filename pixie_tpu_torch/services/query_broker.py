@@ -15,8 +15,10 @@ cluster-stitched trace view (``trace_view``, ``/debug/tracez``), the
 observed-cost admission floor (``observed_costs``) and the cluster
 profile (``profile_rows``, ``broker.profile``). Not in this slice:
 pxtrace mutations (the compiler refuses a script that imports
-``pxtrace``) and the broker-HA hooks (dispatches carry no epoch, as in a
-single-broker deployment).
+``pxtrace``). The broker-HA hooks (``broker_id``, ``epoch_fn``,
+``state_log``, ``stop_serving``, ``QueryResultForwarder.abandon``) are
+wired by ``services/broker_ha.py``; a broker that no replica wires
+dispatches without an epoch, as a single-broker deployment does.
 """
 
 from __future__ import annotations
@@ -49,6 +51,14 @@ class AgentLost(QueryError):
     """A query participant died (expired / never acked its dispatch)
     while ``require_complete`` forbids degrading to partial results, or
     the participant was the un-substitutable merge agent."""
+
+
+class QueryAbandoned(QueryError):
+    """A broker-HA kill released this forwarder wait WITHOUT cancelling
+    the agents' work: the fragments keep running so the successor
+    leader can re-attach a fresh forwarder and complete the very same
+    query. The served reply for an abandoned query is suppressed — the
+    successor answers the caller's inbox (``services/broker_ha.py``)."""
 
 
 class AdmissionError(QueryError):
@@ -511,7 +521,10 @@ class QueryResultForwarder:
         everywhere (agents abort at their next window boundary) and
         whatever already arrived returns as a ``partial`` result with
         the unreported agents marked ``missing_reasons[...] =
-        deadline_reason`` — a deadline is degradation, not failure. An ``interrupt()`` (the ``cancel_query`` path)
+        deadline_reason`` — a deadline is degradation, not failure (a
+        successor broker adopting an in-flight query passes
+        "broker_failover" so the attribution names the takeover, not
+        the query). An ``interrupt()`` (the ``cancel_query`` path)
         takes the same exit with reason "cancelled"."""
         with self._lock:
             st = self._active[qid]
@@ -562,6 +575,14 @@ class QueryResultForwarder:
                     # post-eos grace -> result, watchdog -> the
                     # QueryTimeout above; query_result_forwarder.go:241).
                     continue
+                if "_abandon" in msg:
+                    # Broker-HA kill: free this waiter and its subs (the
+                    # finally deregisters) WITHOUT publishing
+                    # query.cancel — agents keep running for the
+                    # successor's re-attached forwarder.
+                    raise QueryAbandoned(
+                        f"query {qid} abandoned: {msg['_abandon']}"
+                    )
                 if "_interrupt" in msg:
                     # cancel_query(): the same cooperative exit as a
                     # lapsed deadline, reason "cancelled".
@@ -663,6 +684,26 @@ class QueryResultForwarder:
             return False
         st["queue"].put({"_interrupt": reason})
         return True
+
+    def abandon(self, qid: str, reason: str = "broker_failover") -> bool:
+        """Release a registered query WITHOUT cancelling the agents'
+        work: the wait loop raises :class:`QueryAbandoned` (freeing its
+        subscriptions and threads) but no ``query.cancel`` is published
+        — the fragments keep running so a broker-HA successor can
+        re-attach a fresh forwarder and complete the same query. The
+        killed leader's teardown path."""
+        with self._lock:
+            st = self._active.get(qid)
+        if st is None:
+            return False
+        st["queue"].put({"_abandon": reason})
+        return True
+
+    def active_qids(self) -> list[str]:
+        """Registered (in-flight) query ids — what a broker-HA kill
+        abandons and a standby's mirror is reconciled against."""
+        with self._lock:
+            return sorted(self._active)
 
     def _interrupted(self, qid: str, st: dict, outputs: dict,
                      stats: dict, merge_stats: dict,
@@ -876,6 +917,31 @@ class QueryBroker:
             TOPIC_REGISTER, self._on_agent_registered
         )
 
+        # Broker-HA hooks (services/broker_ha.py wires these; all three
+        # default to the plain single-broker behavior). epoch_fn stamps
+        # the leader's fencing epoch on every dispatch envelope;
+        # state_log streams compact control-plane events to standbys;
+        # broker_id identifies which broker answered (px agents).
+        self.broker_id = ""
+        self.epoch_fn = None    # () -> int; None = epochless
+        self.state_log = None   # (event: str, data: dict) -> None
+        # Set by BrokerReplica.kill(): this broker is dead, its served
+        # ERROR replies are suppressed (they'd be artifacts of the kill
+        # itself — fenced dispatches, abandoned waits — and would race
+        # the successor's real answer for the caller's one-shot inbox).
+        self.ha_suppress_errors = False
+
+    def _log_state(self, event: str, data: dict) -> None:
+        """Emit one broker.state replication event when this broker is
+        an HA leader; no-op otherwise. Replication must never fail the
+        query path."""
+        log = self.state_log
+        if log is not None:
+            try:
+                log(event, data)
+            except Exception:
+                pass
+
     def _on_agent_registered(self, msg: dict) -> None:
         self._abort_streams_of(
             msg.get("agent_id"), "restarted (re-registered)",
@@ -888,6 +954,10 @@ class QueryBroker:
         # ResultCache serializes internally (its own Lock), so the
         # cross-dispatcher clear() is safe without a broker-side lock.
         self.result_cache.clear()  # pxlint: disable=thread-shared-state
+        self._log_state("agent", {
+            "op": "registered", "agent_id": msg.get("agent_id"),
+        })
+        self._log_state("cache_invalidate", {"why": "agent-registered"})
 
     def _abort_streams_of(self, agent_id, why: str,
                           include_data_agents: bool = False) -> None:
@@ -927,6 +997,11 @@ class QueryBroker:
         # results that covered it must not serve as-if-complete.
         # ResultCache serializes internally (see _on_agent_registered).
         self.result_cache.clear()  # pxlint: disable=thread-shared-state
+        self._log_state("agent", {
+            "op": "expired", "agent_id": aid,
+            "reason": msg.get("reason", "expired"),
+        })
+        self._log_state("cache_invalidate", {"why": "agent-expired"})
 
     def _degrade_streams_of(self, agent_id, why: str) -> None:
         with self._degrade_lock:
@@ -1148,6 +1223,16 @@ class QueryBroker:
                 self._exec_backlog.clear()
         self.trace_view.close()
 
+    def stop_serving(self) -> None:
+        """Withdraw the served bus API only (the broker-HA step-down
+        path): new ``broker.*`` requests flow to whichever broker now
+        serves them, while THIS broker's in-flight queries keep
+        completing and replying, and its lifecycle subscriptions stay.
+        ``serve()`` may run again on re-election."""
+        for sub in getattr(self, "_serve_subs", []):
+            sub.unsubscribe()
+        self._serve_subs = []
+
     # -- profiling tier ------------------------------------------------------
     def profile_rows(
         self,
@@ -1241,6 +1326,7 @@ class QueryBroker:
         tenant: str | None = None,
         priority: int = 0,
         deadline_ms: float | None = None,
+        reply_to: str | None = None,
     ) -> dict:
         """The VizierService.ExecuteScript flow, end to end: compile
         against the tracker's schemas, plan onto the live agents,
@@ -1258,6 +1344,10 @@ class QueryBroker:
         past-deadline work at window boundaries and the client gets a
         ``partial`` result with ``missing_reasons=...: "deadline"``
         instead of dead compute.
+
+        ``reply_to`` (the served request's inbox) is replicated with the
+        in-flight record under broker HA, so a successor leader can
+        answer the caller.
         """
         from ..config import get_flag
         from .tenancy import resolve_tenant
@@ -1280,6 +1370,7 @@ class QueryBroker:
                 query, timeout_s, now_ns, max_output_rows,
                 require_complete, trace,
                 tenant, int(priority), deadline_mono, deadline_unix,
+                reply_to,
             )
         except Exception as e:
             self.tracer.end_query(
@@ -1307,6 +1398,7 @@ class QueryBroker:
         priority: int,
         deadline_mono: float | None,
         deadline_unix: float | None,
+        reply_to: str | None = None,
     ) -> dict:
         from ..exec import result_cache as rc
 
@@ -1411,6 +1503,11 @@ class QueryBroker:
         envelope = {"tenant": tenant}
         if deadline_unix is not None:
             envelope["deadline_unix_s"] = deadline_unix
+        if self.epoch_fn is not None:
+            # Broker-HA epoch fencing: agents reject dispatches stamped
+            # below the highest epoch they've seen, so a deposed
+            # leader's (re)dispatches die instead of double-executing.
+            envelope["epoch"] = int(self.epoch_fn())
         dispatches: dict = {
             (merge_agent, "merge"): (
                 f"agent.{merge_agent}.merge",
@@ -1456,6 +1553,18 @@ class QueryBroker:
                 qid, data_agents, merge_agent=merge_agent,
                 require_complete=require_complete, trace=trace,
             )
+            # Replication (broker HA): the admission grant + dispatch
+            # expectations, enough for a standby to reconcile and
+            # resolve this query if this broker dies mid-flight.
+            self._log_state("inflight", {
+                "qid": qid, "tenant": tenant,
+                "expected": list(data_agents),
+                "merge_agent": merge_agent,
+                "reply_to": reply_to or "",
+                "require_complete": bool(require_complete),
+                "predicted": predicted,
+                "deadline_unix_s": deadline_unix,
+            })
             with trace.span("dispatch") as sp:
                 sp.attributes.update({
                     "data_agents": ",".join(data_agents),
@@ -1480,6 +1589,7 @@ class QueryBroker:
             # The query's predicted bytes stop counting against the
             # admission budget the moment it finishes or fails.
             self.admission.release(qid)
+            self._log_state("release", {"qid": qid})
         result["qid"] = qid
         result["distributed_plan"] = dplan
         result["predicted_cost"] = predicted
@@ -1615,6 +1725,10 @@ class QueryBroker:
         if not self.tracker.has_agent(merge_agent):
             self._abort_streams_of(merge_agent, "expired during planning")
             return handle
+        envelope: dict = {}
+        if self.epoch_fn is not None:
+            # Same epoch fencing as one-shot dispatch (broker HA).
+            envelope["epoch"] = int(self.epoch_fn())
         dispatches: dict = {
             (merge_agent, "stream_merge"): (
                 f"agent.{merge_agent}.stream_merge",
@@ -1625,6 +1739,7 @@ class QueryBroker:
                         b.bridge_id for b in dplan.split.bridges
                     ],
                     "data_agents": data_agents,
+                    **envelope,
                 },
             ),
         }
@@ -1636,6 +1751,7 @@ class QueryBroker:
                     "plan": dplan.split.before_blocking,
                     "merge_agent": merge_agent,
                     "poll_interval_s": poll_interval_s,
+                    **envelope,
                 },
             )
 
@@ -1772,6 +1888,9 @@ class QueryBroker:
                     tenant=msg.get("tenant"),
                     priority=int(msg.get("priority", 0)),
                     deadline_ms=None if dl is None else float(dl),
+                    # Broker HA: replicated with the in-flight record so
+                    # a successor leader can answer this caller's inbox.
+                    reply_to=msg.get("_reply_to"),
                 )
                 _reply(msg, {
                     "ok": True,
@@ -1787,7 +1906,21 @@ class QueryBroker:
                     "freshness_lag_ms": res.get("freshness_lag_ms"),
                     "cache": res.get("cache", ""),
                 })
+            except QueryAbandoned:
+                # Broker-HA kill released this wait without cancelling
+                # the agents: the successor leader re-attaches and
+                # answers the caller's inbox — replying here would race
+                # (and beat) the real answer.
+                return
             except Exception as e:  # errors cross the wire as data
+                if self.ha_suppress_errors:
+                    # Killed broker: its dispatches are epoch-fenced, so
+                    # failures here (un-acked retries -> AgentLost) are
+                    # artifacts of its own death. The query was mirrored
+                    # before dispatch; the successor answers the inbox —
+                    # an error reply now would consume the caller's
+                    # one-shot inbox and beat the real answer.
+                    return
                 _reply(msg, {"ok": False, "error": f"{type(e).__name__}: {e}"})
 
         # One DAEMON worker thread per in-flight request, capped PER
@@ -1811,7 +1944,8 @@ class QueryBroker:
         from .tenancy import resolve_tenant
 
         # Live workers hold closures over these attributes: a serve()
-        # after close() keeps them rather than replacing them under a
+        # after close() or a stop_serving() (broker-HA step-down, then
+        # re-election) keeps them rather than replacing them under a
         # draining worker.
         if getattr(self, "_exec_gate", None) is None:
             self._exec_gate = threading.Lock()
@@ -1941,7 +2075,13 @@ class QueryBroker:
             _reply(msg, {"ok": True, "schemas": self.tracker.schemas()})
 
         def _on_agents(msg):
-            _reply(msg, {"ok": True, "agents": self.tracker.agents_info()})
+            # "broker" names which replica answered (`px agents` prints
+            # it) — meaningful under broker HA, empty on a plain broker.
+            _reply(msg, {
+                "ok": True,
+                "agents": self.tracker.agents_info(),
+                "broker": self.broker_id,
+            })
 
         def _on_scripts(msg):
             from ..scripts import list_scripts

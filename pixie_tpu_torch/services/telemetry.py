@@ -519,6 +519,27 @@ class ObservedCostIndex:
             ent = self._entries.get(script_hash)
             return dict(ent) if ent is not None else None
 
+    def seed(self, entries: dict | None) -> None:
+        """Fold a mirrored cost history into this index (broker-HA
+        takeover: the standby replayed the leader's ``broker.state``
+        cost events and the new leader starts calibrated instead of
+        re-learning admission floors from zero). Max-merge per script
+        hash — seeding can only raise an entry, mirroring
+        :meth:`on_trace`; same LRU bound."""
+        with self._lock:
+            for h, e in (entries or {}).items():
+                ent = self._entries.pop(h, None) or {
+                    "bytes_staged": 0, "rows_in": 0, "runs": 0,
+                }
+                ent["bytes_staged"] = max(
+                    ent["bytes_staged"], int(e.get("bytes_staged", 0))
+                )
+                ent["rows_in"] = max(ent["rows_in"], int(e.get("rows_in", 0)))
+                ent["runs"] = max(ent["runs"], int(e.get("runs", 0)))
+                self._entries[h] = ent
+                while len(self._entries) > self.max_entries:
+                    self._entries.popitem(last=False)
+
     def floor_predicted(self, predicted: dict | None,
                         script_hash: str) -> dict | None:
         """Calibrated prediction: ``predicted`` floored at the observed

@@ -155,11 +155,12 @@ def test_run_local_without_a_card_exits_non_zero(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("var,rc", [("PIXIE_TPU_SELF_PROFILING", 1),
-                                    ("PIXIE_TPU_BROKER_HA", 2),
-                                    ("PIXIE_TPU_LOCKDEP", 2)])
+                                    ("PIXIE_TPU_BROKER_HA", 1),
+                                    ("PIXIE_TPU_LOCKDEP", 1)])
 def test_deploy_options_of_later_slices(monkeypatch, capsys, var, rc):
-    """Self-profiling is accepted (without a card the role then exits 1
-    on the device), broker HA and lockdep are refused with 2."""
+    """Self-profiling, broker HA and lockdep are accepted: without a card
+    the role then exits 1 on the device, and nothing is refused as a
+    later slice."""
     import torch
 
     from pixie_tpu_torch import deploy
@@ -480,3 +481,74 @@ def test_three_deploy_roles_answer_the_cli(tmp_path):
             text = f.read()
             f.close()
             assert "Traceback" not in text, text[-2000:]
+
+
+def test_deploy_broker_under_ha_and_lockdep(tmp_path):
+    """``deploy broker`` with ``PIXIE_TPU_BROKER_HA=1`` (as replica
+    broker-7) and ``PIXIE_TPU_LOCKDEP=1`` on the CPU: it starts,
+    ``/statusz`` carries the ``ha`` block (leader, epoch 1),
+    ``api.Client.resolve_leader`` names it, and ``cli agents`` prints the
+    replica's id as the JAX CLI prints it against a JAX replica. A 60 s
+    deadline."""
+    import pixie_tpu.services.broker_ha as jax_ha
+    from pixie_tpu_torch.api import Client
+
+    deadline = time.monotonic() + 60.0
+    port, obs = _free_port(), _free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(
+        PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+        PIXIE_TPU_TORCH_DEVICE="cpu", PIXIE_TPU_NETBUS_PORT=str(port),
+        PIXIE_TPU_OBS_PORT=str(obs), PIXIE_TPU_BROKER_HA="1",
+        PIXIE_TPU_BROKER_ID="broker-7", PIXIE_TPU_LOCKDEP="1",
+        PIXIE_TPU_SELF_PROFILING="0",
+    )
+    log = open(tmp_path / "broker.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pixie_tpu_torch.deploy", "broker"],
+        env=env, cwd=str(tmp_path), stdout=log, stderr=subprocess.STDOUT)
+    try:
+        client = None
+        while client is None:
+            if proc.poll() is not None:
+                log.seek(0)
+                raise AssertionError(f"broker exited: {log.read()[-2000:]}")
+            assert time.monotonic() < deadline, "broker never listened"
+            try:
+                client = Client("127.0.0.1", port, connect_timeout_s=1.0)
+            except OSError:
+                time.sleep(0.2)
+        with client:
+            lead = client.resolve_leader()
+            assert (lead["broker"], lead["epoch"], lead["answered_by"]) == (
+                "broker-7", 1, "broker-7")
+            assert client.agents_status() == {"agents": [],
+                                              "broker": "broker-7"}
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{obs}/statusz", timeout=5) as resp:
+            ha = json.loads(resp.read())["ha"]
+        assert ha["broker"] == "broker-7" and ha["role"] == "leader"
+        assert ha["epoch"] >= 1 and ha["leader"] == "broker-7"
+        port_out = _run(port_cli, "agents", "--broker", f"127.0.0.1:{port}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+        log.seek(0)
+        text = log.read()
+        log.close()
+    assert "Traceback" not in text, text[-2000:]
+    bus = jax_services.MessageBus()
+    rep = jax_ha.BrokerReplica(bus, "broker-7", leader=True)
+    server = JaxBusServer(bus)
+    try:
+        jax_out = _run(jax_cli, "agents", "--broker",
+                       f"127.0.0.1:{server.port}")
+    finally:
+        server.close()
+        rep.close()
+        bus.close()
+    assert port_out == jax_out == "broker: broker-7\n"

@@ -7,10 +7,13 @@ form, the ``any`` UDA) and a windowed radix join leaves neither in
 (bus, tracker, PEMs, Kelvin, broker, bridges), neither does a query
 through PEMs on the framed-TCP netbus with the entry points' modules
 (wire, netbus, ingest, deploy, cli, api, observability, cron runner)
+loaded, neither does a failover across two broker replicas under
+lockdep and a fault injector with the load tester and the chaos soak
 loaded, and nothing falls back to the CPU or to a plain version on its
 own: an engine or an agent built without an engine raises when there is
-no card, and a deploy role or ``cli run --local`` started without a card
-and without ``PIXIE_TPU_TORCH_DEVICE`` exits non-zero."""
+no card, and a deploy role, ``cli run --local``, the load tester's
+``--local`` or the chaos soak started without a card and without
+``PIXIE_TPU_TORCH_DEVICE`` exits non-zero."""
 
 import ast
 import os
@@ -248,13 +251,85 @@ print("ok")
     assert res.stdout.strip().endswith("ok")
 
 
+def test_resilience_path_loads_neither_jax_nor_the_jax_package():
+    code = """
+import sys, time
+import numpy as np
+from pixie_tpu_torch import Engine
+from pixie_tpu_torch.analysis import lockdep
+st = lockdep.enable()
+from pixie_tpu_torch.services import (FaultInjector, KelvinAgent, MessageBus,
+                                      PEMAgent)
+from pixie_tpu_torch.services.broker_ha import BrokerReplica
+import pixie_tpu_torch.services.chaos, pixie_tpu_torch.services.load_tester
+bus = MessageBus()
+reps = [BrokerReplica(bus, f"broker-{i}", leader=i == 0,
+                      lease_interval_s=0.05, lease_expiry_s=0.3)
+        for i in range(2)]
+pem = PEMAgent(bus, "pem-0", heartbeat_interval_s=5.0,
+               engine=Engine(window_rows=1024, device="cpu"))
+pem.engine.append_data("t", {"time_": np.arange(300), "v": np.arange(300) % 3})
+kel = KelvinAgent(bus, "kelvin-0", heartbeat_interval_s=5.0,
+                  engine=Engine(window_rows=1024, device="cpu"))
+q = ("import px\\ndf = px.DataFrame(table='t')\\n"
+     "px.display(df.groupby('v').agg(n=('v', px.count)), 'o')")
+try:
+    pem.start(); kel.start()
+    deadline = time.monotonic() + 5
+    while ("t" not in reps[0].tracker.schemas()
+           or reps[1].epoch < 1) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    inj = FaultInjector(seed=0)
+    inj.duplicate("agent.*.execute")
+    bus.fault_injector = inj
+    res = bus.request("broker.execute", {"query": q}, timeout_s=20)
+    assert res["ok"] and sorted(res["tables"]["o"].to_pydict()["n"]) == [
+        100, 100, 100], res
+    reps[0].kill()
+    deadline = time.monotonic() + 5
+    while reps[1].role != "leader" and time.monotonic() < deadline:
+        time.sleep(0.01)
+    res = None
+    while res is None and time.monotonic() < deadline:
+        try:
+            res = bus.request("broker.execute", {"query": q}, timeout_s=20)
+        except Exception:
+            time.sleep(0.05)
+    assert res["ok"] and res["partial"] is False, res
+    assert inj.fired("duplicate") >= 2
+finally:
+    bus.fault_injector = None
+    pem.stop(); kel.stop()
+    for r in reps:
+        r.close()
+    bus.close()
+assert lockdep.disable() is st and st.violations == [] and st.edges
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("argv", [
     ["pixie_tpu_torch.deploy", "broker"],
     ["pixie_tpu_torch.deploy", "pem"],
     ["pixie_tpu_torch.deploy", "kelvin"],
     ["pixie_tpu_torch.cli", "run", "px/http_stats", "--local",
      "--synthetic", "100"],
-], ids=["broker", "pem", "kelvin", "cli_run_local"])
+    ["pixie_tpu_torch.services.load_tester", "--local", "--rows", "100"],
+    ["pixie_tpu_torch.services.chaos", "--agents", "4"],
+], ids=["broker", "pem", "kelvin", "cli_run_local", "load_tester_local",
+        "chaos"])
 def test_entry_point_without_a_card_exits_non_zero(argv, tmp_path):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "PIXIE_TPU_TORCH_DEVICE")}
