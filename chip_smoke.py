@@ -103,9 +103,20 @@ without them. In order it:
    rows without it; ``cli agents`` lists the 3 agents; ``api.Client``
    returns the CLI's table through a record handler; the broker's
    ``/healthz`` and ``/metrics`` answer 200 and its ``/statusz`` carries
-   the ``ha`` block (leader, epoch at least 1). Every child's output goes
-   to a file, every wait is bounded, every child is stopped at the end,
-   and a child that dies or prints a traceback fails the phase;
+   the ``ha`` block (leader, epoch at least 1); every role and client
+   shares one bus secret, and the native client (``native/pxclient.cc``,
+   built with g++ beside the kernels) prints the CLI's table for the
+   bounded group-by, lists the scripts, prints two live updates with
+   ``--stream --updates 2`` and is refused with a wrong secret. Every
+   child's output goes to a file, every wait is bounded, every child is
+   stopped at the end, and a child that dies or prints a traceback fails
+   the phase. Then ``operator``: ``services.operator.Reconciler`` in
+   this process keeps a broker, two seq-gen PEMs and a Kelvin running
+   as role processes on the card while queries run back to back over
+   the netbus for 30 s (tests/test_soak.py's 90 s, cut); one PEM is
+   SIGKILLed, the operator restarts it within its backoff, and every
+   query after it re-registers answers over both PEMs; at the end no
+   child is left and the card's used bytes are back at the base;
 7. the group_by phase: which uint64 ops the card's PyTorch has; a
    2^23-row process_stats replay (20,000 upids in 2,000 pods, UINT128
    keys, 0.9 GB resident); a filtered row chain that carries the upid
@@ -173,7 +184,17 @@ without them. In order it:
    and inside ``to_host()`` (torch.profiler); a result kept on the card
    left out of the next query's peak; and one rebucket forced inside
    ``to_host()`` (px/http_stats' AggOp cut to 64 groups, dense key
-   domains off, through ``execute_plan(materialize=False)``);
+   domains off, through ``execute_plan(materialize=False)``); then the
+   otel phase on the same windows: px/service_stats with ``px.export``
+   of a per-service OTel Summary (count, p50, p99) and Gauge (error
+   rate), with the hist_fold launches counted, the payload held to the
+   answer and to numpy; the same through an ``OTLPHttpExporter`` to a
+   loopback receiver (what it got equals the payload); a span per row of
+   a filtered row chain, held to numpy; and ``trace_export_url`` set to
+   the receiver (the trace arrives with a span per window; with the
+   receiver stopped the query answers and the failed push is counted).
+   The cluster phase runs the export through its broker too: the sink
+   runs on the Kelvin and no PEM holds an export;
 13. the bench phase (at the end): ``pixie_tpu_torch.bench.run_shape``
    for bench.py's ten shapes at 2^22 head rows (each shape's divisor
    applies), the A/B pass off, each checked with bench.py's numpy
@@ -3607,6 +3628,7 @@ def phase_cluster(eng, replay, device, window: int = WINDOW,
                 "telemetry_turns": ab[n]["telemetry"]}
                 for n in CL_SCRIPTS}}))
         out["off_secs"] = {n: float(np.median(ab[n]["off"])) for n in CL_SCRIPTS}
+        out["otel"] = cl_otel(c, replay)
         live = cl_expiry_and_live(c, replay, window, quarter)
         if device.type == "cuda":
             assert live > 0, "the live query launched no hist_fold"
@@ -4306,6 +4328,7 @@ def phase_processes(eng, replay, device, in_process: dict,
 
 DP_SEQ_BOUND = 64  # seq-gen rows with x below this: one transfer per PEM
 DP_START_S = 120.0
+DP_SECRET = "chip-smoke-deploy"  # the bus secret every role and client shares
 
 
 def _free_port() -> int:
@@ -4318,7 +4341,19 @@ def _free_port() -> int:
     return port
 
 
-def phase_deploy(device) -> None:
+def _client_rows(text: str, table: str = "output") -> list:
+    """The rows ``pxclient`` printed for ``table``: its header line names
+    the columns, each row line holds tab-separated integers."""
+    lines = text.splitlines()
+    at = next(i for i, ln in enumerate(lines)
+              if ln.startswith(f"[{table}] "))
+    n = int(lines[at].split()[1])
+    cols = lines[at + 1].rstrip("\t").split("\t")
+    return [dict(zip(cols, map(int, ln.rstrip("\t").split("\t"))))
+            for ln in lines[at + 2:at + 2 + n]]
+
+
+def phase_deploy(device, pxclient: str) -> None:
     """The system started the way its users start it:
     ``python -m pixie_tpu_torch.deploy broker`` (one broker-HA replica,
     under lockdep: its ``/statusz`` shows the leader at epoch 1 or
@@ -4332,14 +4367,23 @@ def phase_deploy(device) -> None:
     PEMs and the Kelvin; ``cli profile`` names the broker's and both
     PEMs' samplers; ``api.Client.execute_script`` returns the CLI's table
     through a record handler; the broker's ``/healthz``, ``/metrics`` and
-    ``/debug/programz`` answer 200. Every wait is bounded."""
+    ``/debug/programz`` answer 200. Every role and client shares one bus
+    secret (``PIXIE_TPU_BUS_SECRET``). The native client ``pxclient``
+    (``native/pxclient.cc``, built with g++ at the start of the run)
+    prints for the bounded group-by the table ``cli run`` printed, lists
+    the scripts, prints two updates of the live sequences group-by with
+    ``--stream --updates 2`` and exits 0, and is refused with a wrong
+    secret. Every wait is bounded."""
     from pixie_tpu_torch.api import Client, TableRecordHandler
+    from pixie_tpu_torch.config import clear_flag, set_flag
+    from pixie_tpu_torch.scripts import list_scripts
 
     t_phase = time.perf_counter()
     netbus, obs = _free_port(), _free_port()
     addr = f"127.0.0.1:{netbus}"
     env = child_env(device, PIXIE_TPU_NETBUS_PORT=netbus,
-                    PIXIE_TPU_OBS_PORT=obs, PIXIE_TPU_BROKER=addr)
+                    PIXIE_TPU_OBS_PORT=obs, PIXIE_TPU_BROKER=addr,
+                    PIXIE_TPU_BUS_SECRET=DP_SECRET)
     kids = Children("deploy")
     timings, rcs = {}, {}
     seq = ("import px\ndf = px.DataFrame(table='sequences')\n"
@@ -4364,6 +4408,17 @@ def phase_deploy(device) -> None:
         timings.setdefault("cli_s", []).append(time.perf_counter() - t0)
         return r.stdout
 
+    def native(*argv, secret=DP_SECRET, ok=True):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [pxclient, "--port", str(netbus), "--secret", secret, *argv],
+            cwd=kids.dir, capture_output=True, text=True, timeout=120)
+        assert (r.returncode == 0) == ok, (argv, r.returncode,
+                                           r.stdout[-2000:], r.stderr[-2000:])
+        timings.setdefault("pxclient_s", []).append(time.perf_counter() - t0)
+        return r
+
+    set_flag("bus_secret", DP_SECRET)  # this process's api.Client
     try:
         # The broker as one replica of an HA control plane, its locks
         # under lockdep.
@@ -4430,6 +4485,25 @@ def phase_deploy(device) -> None:
                                   handler_factory=lambda t: rec)
             key = lambda r: r["modulo10"]
             assert sorted(rec.rows, key=key) == sorted(rows["rows"], key=key)
+            # The native client: the same table as the CLI's, the
+            # scripts, two live updates, and a wrong secret refused.
+            got = _client_rows(native(
+                "--script", os.path.join(kids.dir, "bounded.pxl")).stdout)
+            assert sorted(got, key=key) == sorted(rows["rows"], key=key), (
+                got, rows["rows"])
+            listed = native("--list").stdout.splitlines()
+            assert listed == list_scripts(), listed[:5]
+            live = native("--stream", "--updates", "2", "--script",
+                          os.path.join(kids.dir, "seq.pxl")).stdout
+            heads = [ln for ln in live.splitlines()
+                     if ln.startswith("-- update")]
+            assert len(heads) == 2, live[-2000:]
+            assert live.count("[output] 10 rows") == 2, live[-2000:]
+            bad = native("--script", os.path.join(kids.dir, "bounded.pxl"),
+                         secret="wrong", ok=False)
+            assert "auth" in bad.stderr.lower(), bad.stderr
+            timings["pxclient"] = {"rows": len(got), "scripts": len(listed),
+                                   "updates": heads}
         for path in ("/healthz", "/metrics"):
             code, _body = pr_scrape(obs, path)
             assert code == 200, (path, code)
@@ -4445,6 +4519,7 @@ def phase_deploy(device) -> None:
                                                    "compiles", "compile_ms")}
         kids.check()
     finally:
+        clear_flag("bus_secret")
         rcs = kids.close()
     kids.verify_exits(rcs)
     print(json.dumps({"phase": "deploy", "roles": ["broker"] + pems
@@ -4454,8 +4529,11 @@ def phase_deploy(device) -> None:
                       "profile": timings.get("profile"),
                       "broker_programz": timings.get("programz"),
                       "broker_ha": timings.get("ha"),
+                      "pxclient": timings.get("pxclient"),
+                      "pxclient_s": timings.get("pxclient_s"),
                       "exit_codes": rcs,
-                      "secs": time.perf_counter() - t_phase}))
+                      "secs": time.perf_counter() - t_phase,
+                      "card": card_line() if device.type == "cuda" else None}))
 
 
 # -- the failover phase: broker HA, faults and lockdep on one card -------------
@@ -4876,6 +4954,445 @@ def phase_device_result(eng, expect: Expect) -> None:
     }))
 
 
+# -- the otel phase: px.export and the OTLP trace push on the card -------------
+OT_SPAN_BELOW = 13_000  # latency_ns under this: about 2,000 of 2^24 rows
+OT_EXPORT = """
+px.export(per_svc, px.otel.Data(
+    endpoint=px.otel.Endpoint(url='{url}'),
+    resource={{'service.name': per_svc.service,
+              'k8s.cluster.name': 'chip-smoke'}},
+    data=[
+        px.otel.metric.Summary(name='http.latency', unit='ns',
+            count=per_svc.throughput,
+            quantile_values={{0.5: per_svc.p50, 0.99: per_svc.p99}}),
+        px.otel.metric.Gauge(name='http.error_rate', value=per_svc.error_rate),
+    ],
+))
+"""
+OT_SPANS = f"""import px
+df = px.DataFrame(table='http_events')
+df = df[df.latency_ns < {OT_SPAN_BELOW}]
+df.end_time = df.time_ + px.int64_to_time(df.latency_ns)
+px.export(df, px.otel.Data(
+    resource={{'service.name': df.service}},
+    data=[px.otel.trace.Span(name=df.req_path, start_time=df.time_,
+        end_time=df.end_time, attributes={{'http.status': df.resp_status}})],
+))
+"""
+
+
+def ot_export_query(url: str = "") -> str:
+    """px/service_stats, its per-service table also exported as an OTel
+    Summary (count, p50, p99) and a Gauge (error rate) per service."""
+    return query_text("px/service_stats") + OT_EXPORT.format(url=url)
+
+
+class OtlpReceiver:
+    """An OTLP/HTTP receiver on 127.0.0.1 (a stdlib ``http.server``
+    thread): records (path, JSON body) and answers 200."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        self.received = []
+        rec = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                rec.received.append((self.path, json.loads(body)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       name="otlp-receiver", daemon=True)
+        self.thread.start()
+
+    def stop(self) -> None:
+        if self.thread.is_alive():
+            self.httpd.shutdown()
+            self.httpd.server_close()
+            self.thread.join(timeout=10)
+
+
+def ot_check_summary(payload: dict, out, want: dict) -> None:
+    """An export of ``ot_export_query`` against the query's own table
+    (counts exact; values at rtol 1e-6: the export reads the folded
+    batch, the display reads it after its limit ran on the card, where
+    FLOAT64 is f32) and numpy (``expect_service_stats``: counts exact,
+    p50/p99 within 15%, the error rate at rtol 1e-4, as
+    ``check_service_stats``)."""
+    got = out.to_pydict()
+    row = {s: i for i, s in enumerate(got["service"])}
+    rms = payload["resourceMetrics"]
+    assert len(rms) == N_SERVICES == len(row), len(rms)
+    assert "resourceSpans" not in payload
+    for rm in rms:
+        attrs = {kv["key"]: kv["value"]["stringValue"]
+                 for kv in rm["resource"]["attributes"]}
+        assert attrs["k8s.cluster.name"] == "chip-smoke", attrs
+        svc = attrs["service.name"]
+        i, (r50, r99, rerr, rthr) = row[svc], want[int(svc[len("svc-"):])]
+        gauge, summary = rm["scopeMetrics"][0]["metrics"]
+        assert (gauge["name"], summary["name"]) == (
+            "http.error_rate", "http.latency")
+        (gp,) = gauge["gauge"]["dataPoints"]
+        (sp,) = summary["summary"]["dataPoints"]
+        np.testing.assert_allclose(gp["asDouble"], got["error_rate"][i],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(gp["asDouble"], rerr, rtol=1e-4)
+        assert sp["count"] == int(got["throughput"][i]) == rthr, (svc, sp)
+        q = sp["quantileValues"]
+        assert [v["quantile"] for v in q] == [0.5, 0.99]
+        np.testing.assert_allclose([v["value"] for v in q],
+                                   [got["p50"][i], got["p99"][i]], rtol=1e-6)
+        assert abs(q[0]["value"] - r50) / r50 < 0.15, (svc, q, r50)
+        assert abs(q[1]["value"] - r99) / r99 < 0.15, (svc, q, r99)
+
+
+def ot_check_spans(payload: dict, replay) -> int:
+    """A span per row of the filtered row chain ``OT_SPANS``: start and
+    end times, names and the status attribute exactly numpy's."""
+    svc, path, lat, status = replay
+    idx = np.flatnonzero(lat < OT_SPAN_BELOW)
+    spans = []
+    for rs in payload["resourceSpans"]:
+        (name,) = [kv["value"]["stringValue"]
+                   for kv in rs["resource"]["attributes"]]
+        for sp in rs["scopeSpans"][0]["spans"]:
+            spans.append((sp["startTimeUnixNano"], sp["endTimeUnixNano"],
+                          name, sp["name"],
+                          sp["attributes"][0]["value"]["stringValue"]))
+    spans.sort()
+    assert len(spans) == len(idx) > 0, (len(spans), len(idx))
+    want = [(int(i), int(i + lat[i]), f"svc-{svc[i]}", f"/api/v1/ep{path[i]}",
+             str(int(status[i]))) for i in idx]
+    assert spans == want, "OTel spans differ from numpy's rows"
+    return len(spans)
+
+
+def _counter(registry, name: str) -> float:
+    return sum(registry.values(name).values())
+
+
+def phase_otel(eng, expect: Expect) -> dict:
+    """OTel export on the resident main replay. ``ot_export_query``
+    (px/service_stats and its export) with the engine's default
+    in-memory egress: the answer held to numpy, the payload to the
+    answer and to numpy, hist_fold's launches counted; then with an
+    ``OTLPHttpExporter`` to a loopback receiver bound as the engine's
+    ``export_otel`` (what the receiver got equals the payload the engine
+    made); ``OT_SPANS`` (a span per row of a filtered row chain) through
+    the same exporter, held to numpy. Then the ``trace_export_url`` flag
+    set to the receiver: the query's trace arrives on ``/v1/traces``
+    with a span per window; with the receiver stopped the query still
+    answers and ``pixie_trace_export_errors_total`` counts the failed
+    push. Returns the kernels' launches of the in-memory export query."""
+    from pixie_tpu_torch.config import override_flag
+    from pixie_tpu_torch.exec.otel import OTLPHttpExporter
+
+    t_phase = time.perf_counter()
+    want = expect_service_stats(expect.replay)
+    out = {"phase": "otel"}
+    eng.otel_exports.clear()
+    eng.execute_query(ot_export_query())  # warm-up
+    eng.otel_exports.clear()
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = eng.execute_query(ot_export_query())["output"]
+    out["export_secs"] = time.perf_counter() - t0
+    launches = _launch_counts()
+    expect.check("px/service_stats", res)
+    (exp,) = eng.otel_exports
+    ot_check_summary(exp["payload"], res, want)
+    eng.otel_exports.clear()
+    out["launches"] = launches
+    out["windows"] = eng.last_stats.windows
+    t0 = time.perf_counter()
+    res = eng.execute_query(query_text("px/service_stats"))["output"]
+    out["display_only_secs"] = time.perf_counter() - t0
+    expect.check("px/service_stats", res)
+    if eng.device.type == "cuda":
+        assert launches["hist_fold"] > 0, launches
+
+    rx = OtlpReceiver()
+    try:
+        pusher = OTLPHttpExporter(rx.url)
+        made = []
+
+        def push(payload, endpoint):
+            made.append(payload)
+            pusher(payload, endpoint)
+
+        eng.export_otel = push
+        try:
+            t0 = time.perf_counter()
+            res = eng.execute_query(ot_export_query(rx.url))["output"]
+            out["push_secs"] = time.perf_counter() - t0
+            expect.check("px/service_stats", res)
+            assert rx.received == [("/v1/metrics", {
+                "resourceMetrics": made[0]["resourceMetrics"]})], rx.received
+            ot_check_summary(rx.received[0][1], res, want)
+            rx.received.clear()
+            t0 = time.perf_counter()
+            eng.execute_query(OT_SPANS)
+            out["spans_secs"] = time.perf_counter() - t0
+            assert rx.received == [("/v1/traces", {
+                "resourceSpans": made[1]["resourceSpans"]})]
+            out["spans"] = ot_check_spans(rx.received[0][1], expect.replay)
+            assert (pusher.pushed, pusher.errors) == (2, 0)
+        finally:
+            del eng.export_otel  # back to the in-memory egress
+        assert not eng.otel_exports
+
+        rx.received.clear()
+        q = query_text("px/service_stats")
+        with override_flag("trace_export_url", rx.url), \
+                override_flag("trace_window_sample", 1):
+            t0 = time.perf_counter()
+            res = eng.execute_query(q)["output"]
+            out["traced_secs"] = time.perf_counter() - t0
+            expect.check("px/service_stats", res)
+            tr = eng.tracer.last()
+            ((path, body),) = rx.received
+            assert path == "/v1/traces" and tr.exported
+            spans = body["resourceSpans"][0]["scopeSpans"][0]["spans"]
+            assert {s["traceId"] for s in spans} == {tr.trace_id}
+            names = [s["name"] for s in spans]
+            assert names[0] == "query" and "fragment" in names, names
+            assert names.count("window.compute") == eng.last_stats.windows
+            out["trace_spans"] = len(spans)
+            rx.stop()
+            before = _counter(eng.tracer.registry,
+                              "pixie_trace_export_errors_total")
+            t0 = time.perf_counter()
+            res = eng.execute_query(q)["output"]
+            out["collector_down_secs"] = time.perf_counter() - t0
+            expect.check("px/service_stats", res)
+            after = _counter(eng.tracer.registry,
+                             "pixie_trace_export_errors_total")
+            assert after == before + 1 and not eng.tracer.last().exported
+            out["export_errors"] = after - before
+    finally:
+        rx.stop()
+    out["checked"] = True
+    out["secs"] = time.perf_counter() - t_phase
+    out["card"] = card_line() if eng.device.type == "cuda" else None
+    print(json.dumps(out))
+    return launches
+
+
+def cl_otel(c, replay) -> dict:
+    """The export through the broker (agent mode): the sink runs on the
+    Kelvin, no PEM's engine holds an export, and the payload equals the
+    merged answer and numpy."""
+    for a in c.agents:
+        a.engine.otel_exports.clear()
+    t0 = time.perf_counter()
+    res = c.broker.execute_script(ot_export_query(), timeout_s=120.0)
+    secs = time.perf_counter() - t0
+    assert len(c.kelvin.engine.otel_exports) == 1
+    assert not any(p.engine.otel_exports for p in c.pems)
+    ot_check_summary(c.kelvin.engine.otel_exports[0]["payload"],
+                     res["tables"]["output"], expect_service_stats(replay))
+    rec = {"phase": "cluster_otel", "checked": True, "secs": secs,
+           "sink": c.kelvin.agent_id, "pem_exports": 0}
+    print(json.dumps(rec))
+    return rec
+
+
+# -- the operator phase: the roles kept alive by the Reconciler ----------------
+OP_RUN_S = 30.0  # tests/test_soak.py queries for 90 s; cut to 30 s here
+OP_KILL_AT_S = 5.0
+OP_AFTER = 5  # queries that must succeed after the killed PEM is back
+OP_LIMIT_S = 150.0
+OP_PEMS = ("pem-op-0", "pem-op-1")
+
+
+def phase_operator(device) -> None:
+    """``tests/test_soak.py``'s scenario on the card, through
+    ``services.operator.Reconciler`` in this process (not YAML): it
+    starts ``python -m pixie_tpu_torch.deploy broker``, two ``pem`` roles
+    with the seq-gen source and a ``kelvin``, each a process on the
+    card. Queries run back to back over the netbus (``api.Client``)
+    for OP_RUN_S; OP_KILL_AT_S in, one PEM is SIGKILLed. The operator
+    restarts it within its backoff, and every query after the restarted
+    PEM re-registers (the broker lists it under a new ASID with its
+    tables) succeeds and covers both PEMs (the count of seq-gen rows with
+    x < DP_SEQ_BOUND is one transfer per PEM, and the answer's agent
+    stats name both). At the end ``Reconciler.stop`` leaves no child,
+    and the card's used bytes are back at the phase's base."""
+    import signal
+    import tempfile
+
+    import torch
+
+    from pixie_tpu_torch.api import Client
+    from pixie_tpu_torch.services import Reconciler, RoleSpec
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+
+    def used() -> int:
+        free, total = torch.cuda.mem_get_info(device)
+        return total - free
+
+    base = used() if on_card else None
+    netbus = _free_port()
+    logs = tempfile.mkdtemp(prefix="chip_smoke_operator_")
+    env = child_env(device, PIXIE_TPU_NETBUS_PORT=netbus,
+                    PIXIE_TPU_OBS_PORT=0,
+                    PIXIE_TPU_BROKER=f"127.0.0.1:{netbus}")
+    role = [sys.executable, "-m", "pixie_tpu_torch.deploy"]
+
+    def spec(name, argv, **extra):
+        e = {**env, "PIXIE_TPU_CRASH_LOG": os.path.join(logs, f"{name}.crash"),
+             **{k: str(v) for k, v in extra.items()}}
+        return RoleSpec(name=name, command=tuple(argv), env=tuple(e.items()))
+
+    specs = {"broker": spec("broker", role + ["broker"])}
+    for aid in OP_PEMS:
+        specs[aid] = spec(aid, role + ["pem"], PIXIE_TPU_AGENT_ID=aid,
+                          PIXIE_TPU_SEQGEN=1)
+    specs["kelvin"] = spec("kelvin", role + ["kelvin"],
+                           PIXIE_TPU_AGENT_ID="kelvin-op")
+    bounded = ("import px\ndf = px.DataFrame(table='sequences')\n"
+               f"df = df[df.x < {DP_SEQ_BOUND}]\n"
+               "s = df.agg(n=('x', px.count))\npx.display(s)\n")
+    full = DP_SEQ_BOUND * len(OP_PEMS)
+    rec = Reconciler(specs, check_interval_s=0.5, base_backoff_s=0.5,
+                     max_backoff_s=4.0)
+    seen: set = set()
+
+    def note_pids():
+        for st in rec.status():
+            if st["pid"] is not None:
+                seen.add(st["pid"])
+
+    def registration(aid):
+        """(asid, tables) the broker lists for ``aid``, None if none."""
+        with Client("127.0.0.1", netbus, connect_timeout_s=2.0) as c:
+            for a in c.agents():
+                if a["agent_id"] == aid:
+                    return a["asid"], a["num_tables"]
+        return None
+
+    def one_query():
+        t0 = time.perf_counter()
+        try:
+            with Client("127.0.0.1", netbus, connect_timeout_s=2.0) as c:
+                res = c.execute_script(bounded, timeout_s=15.0)
+            n = int(res["output"]["n"][0]) if len(res["output"]["n"]) else 0
+            return {"t": t0 - t_phase, "ok": True, "n": n,
+                    "agents": sorted(res.agent_stats),
+                    "secs": time.perf_counter() - t0}
+        except Exception as e:
+            return {"t": t0 - t_phase, "ok": False,
+                    "error": f"{type(e).__name__}: {e}"[:200],
+                    "secs": time.perf_counter() - t0}
+
+    results = []
+    kill = {}
+    rec.run_as_thread()
+    try:
+        deadline = time.perf_counter() + DP_START_S
+        while True:
+            note_pids()
+            r = one_query()
+            if r["ok"] and r["n"] == full:
+                break
+            assert time.perf_counter() < deadline, (
+                f"the operator's roles never answered: {r}, {rec.status()}")
+            time.sleep(0.5)
+        ready_s = time.perf_counter() - t_phase
+        t_run = time.perf_counter()
+        while True:
+            now = time.perf_counter() - t_run
+            note_pids()
+            if not kill and now >= OP_KILL_AT_S:
+                (st,) = [s for s in rec.status() if s["role"] == OP_PEMS[0]]
+                old = registration(OP_PEMS[0])
+                os.kill(st["pid"], signal.SIGKILL)
+                kill = {"pid": st["pid"], "t": time.perf_counter(),
+                        "asid": old[0], "tables": old[1]}
+            if kill and "restart_s" not in kill:
+                (st,) = [s for s in rec.status() if s["role"] == OP_PEMS[0]]
+                if st["alive"] and st["pid"] != kill["pid"]:
+                    kill["restart_s"] = time.perf_counter() - kill["t"]
+            if "restart_s" in kill and "back_s" not in kill:
+                reg = registration(OP_PEMS[0])
+                if reg and reg[0] != kill["asid"] and reg[1] >= kill["tables"]:
+                    kill["back_s"] = time.perf_counter() - kill["t"]
+                    kill["back_at"] = len(results)
+                    kill["new_asid"] = reg[0]
+            r = one_query()
+            r["after_kill"] = bool(kill)
+            results.append(r)
+            after = (len(results) - 1 - kill["back_at"]
+                     if "back_at" in kill else 0)
+            if now >= OP_RUN_S and after >= OP_AFTER:
+                break
+            assert now < OP_LIMIT_S, (
+                f"the killed PEM never came back: {kill}, {results[-3:]}")
+    finally:
+        note_pids()
+        t0 = time.perf_counter()
+        rec.stop()
+        stop_s = time.perf_counter() - t0
+    alive = [p for p in seen if _pid_alive(p)]
+    assert not alive, f"children left after Reconciler.stop: {alive}"
+    events = [e[1] for e in rec.events]
+    assert "crashed" in events and "restarted" in events, events
+    assert kill["restart_s"] < rec.base_backoff_s + 2 * rec.check_interval_s + 2.0, kill
+    before = [r for r in results if not r["after_kill"]]
+    assert before and all(r["ok"] and r["n"] == full for r in before), before
+    back = results[kill["back_at"]:]
+    bad = [r for r in back
+           if not (r["ok"] and r["n"] == full and r["agents"] == sorted(OP_PEMS))]
+    assert not bad, (f"queries after the PEM came back failed: {bad[:3]}",
+                     [(round(r["t"], 2), r.get("n"), r.get("agents"),
+                       r.get("error")) for r in results], kill)
+    gap = results[len(before):kill["back_at"]]
+    freed = None
+    if on_card:
+        deadline = time.perf_counter() + 30.0
+        while used() > base and time.perf_counter() < deadline:
+            time.sleep(0.2)
+        freed = used() - base
+        assert freed <= 0, f"the card holds {freed} bytes more than before"
+    print(json.dumps({
+        "phase": "operator", "checked": True, "roles": sorted(specs),
+        "ready_s": ready_s, "queries": len(results),
+        "before_kill": len(before), "in_gap": len(gap),
+        "gap_failed": sum(not r["ok"] for r in gap),
+        "gap_partial": sum(r["ok"] and r["n"] != full for r in gap),
+        "after_back": len(back),
+        "query_secs_median": float(np.median([r["secs"] for r in results
+                                              if r["ok"]])),
+        "restart_s": kill["restart_s"], "back_s": kill["back_s"],
+        "events": events, "children_seen": len(seen), "stop_s": stop_s,
+        "used_bytes_base": base, "used_bytes_after_minus_base": freed,
+        "cut": f"{OP_RUN_S:.0f} s of queries (tests/test_soak.py: 90 s)",
+        "secs": time.perf_counter() - t_phase,
+        "card": card_line() if on_card else None}))
+
+
+def _pid_alive(pid: int) -> bool:
+    """True while ``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
 def phase_bench(device) -> dict:
     """``pixie_tpu_torch.bench.run_shape`` in this process for bench.py's
     ten shapes at 2^22 head rows (each shape's divisor applies), the A/B
@@ -4959,10 +5476,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # The native ring and hash join (g++) build beside the kernels (nvcc).
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         native_built = pool.submit(native.build)
+        client_built = pool.submit(native.build_executable, "pxclient")
         built = cuda_lib.build()
         native_secs = native_built.result()
+        pxclient = client_built.result()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           + ", ".join(f"{k} {v[0]:.2f} s" for k, v in built.items())
           + ", " + ", ".join(f"{k} (g++) {v:.2f} s"
@@ -5019,6 +5538,11 @@ def main() -> int:
     for k in kernels:
         k["launches_device_result"] = device_result[k["name"]]
     elapsed("window path and device results")
+    # px.export and the OTLP trace push over the same resident windows.
+    otel = phase_otel(eng, expect)
+    for k in kernels:
+        k["launches_otel"] = otel[k["name"]]
+    elapsed("otel")
     hist = next(k for k in kernels if k["name"] == "hist_fold")
     # Agent mode, held to ``eng`` before the tail grows its table.
     cluster = phase_cluster(eng, replay, device)
@@ -5038,8 +5562,11 @@ def main() -> int:
                               off_secs=cluster["off_secs"])
     hist["launches_failover"] = failover["hist_fold"]
     elapsed("failover")
-    phase_deploy(device)
+    phase_deploy(device, pxclient)
     elapsed("deploy")
+    # The roles kept alive by the operator's Reconciler, a PEM killed.
+    phase_operator(device)
+    elapsed("operator")
     phase_tail(eng, replay)
     del eng, table
     gc.collect()

@@ -20,7 +20,11 @@ scripts over the telemetry schemas) and ``bound_check`` (observed usage
 within the predicted bounds on the engine's device, the over-budget
 refusal, the memoized pass under 5% of a compile). ``lockdep`` is the
 runtime lock-order validator (``lockdep.enable()`` before anything
-builds its locks). The source lint is a later slice.
+builds its locks). ``lint`` is the source lint over the port's tree
+(``python -m pixie_tpu_torch.analysis.lint``: the concurrency rules, the
+metric-name rule and the torch host-sync rule over the hot regions
+``exec/pipeline.py`` registers, against ``baseline.json``); it is pure
+``ast`` and is not imported here.
 """
 
 from . import lockdep

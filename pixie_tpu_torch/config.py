@@ -353,8 +353,8 @@ define_flag(
 define_flag(
     "trace_export_url", "",
     "OTLP/HTTP base URL to push finished query traces to; empty keeps "
-    "traces in-memory only (ring buffer). The OTLP exporter is not in "
-    "this slice of the port: setting it raises.",
+    "traces in-memory only (ring buffer). A failed push counts in "
+    "pixie_trace_export_errors_total and never fails the query.",
 )
 define_flag(
     "slow_query_threshold_ms", 0.0,

@@ -25,8 +25,14 @@ replica of an N-broker control plane (``services/broker_ha.py``;
 ``PIXIE_TPU_BROKER_ID`` names it, ``PIXIE_TPU_BROKER_ROLE=standby``
 boots it as a mirror), and ``PIXIE_TPU_LOCKDEP=1`` (the ``lockdep``
 flag) enables runtime lock-order validation before any role builds its
-engine. Not in this slice, and refused when asked for: the operator
-role.
+engine. A fourth role,
+
+  python -m pixie_tpu_torch.deploy operator  # keeps the roles running
+
+runs ``services/operator.py``'s ``Reconciler`` over one broker, PEM and
+Kelvin (or the YAML spec ``PIXIE_TPU_OPERATOR_SPEC`` names), restarting
+a crashed role with exponential backoff; its children inherit
+``PIXIE_TPU_TORCH_DEVICE``, and it too exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -401,13 +407,46 @@ def _wait_forever() -> None:
 
 
 def run_operator() -> int:
-    """The operator role reconciles the roles as processes from a YAML
-    spec; it is a later slice of the port."""
-    print(
-        "[operator] not in this slice of the port "
-        "(services/operator.py)", file=sys.stderr,
-    )
-    return 2
+    """Operator role: reconcile the deployment's roles as processes
+    (``src/operator/controllers`` analog, ``services/operator.py``).
+    The spec is one of each role by default; ``PIXIE_TPU_OPERATOR_SPEC``
+    names a YAML file of {role: replicas | {replicas, command, env}}
+    instead, and only then is PyYAML imported. The children inherit the
+    device variable, never the spec variable."""
+    from .services.operator import Reconciler, specs_from_config
+
+    spec_path = os.environ.get("PIXIE_TPU_OPERATOR_SPEC", "")
+    cfg = {"broker": 1, "pem": 1, "kelvin": 1}
+    if spec_path:
+        import yaml
+
+        try:
+            with open(spec_path) as f:
+                loaded = yaml.safe_load(f)
+        except (OSError, yaml.YAMLError) as e:
+            print(f"[operator] cannot read spec {spec_path}: {e}",
+                  file=sys.stderr)
+            return 2
+        if loaded is not None:
+            if not isinstance(loaded, dict):
+                print("[operator] spec must be a mapping of "
+                      "{role: replicas|{...}}", file=sys.stderr)
+                return 2
+            cfg = loaded
+    # Self-reference would recurse (children also strip the spec env).
+    cfg.pop("operator", None)
+    try:
+        specs = specs_from_config(cfg)
+    except ValueError as e:
+        print(f"[operator] {e}", file=sys.stderr)
+        return 2
+    rec = Reconciler(specs)
+    rec.run_as_thread()
+    print(f"[operator] reconciling roles: "
+          f"{ {r: s.replicas for r, s in rec.specs.items()} }", flush=True)
+    _wait_forever()
+    rec.stop()
+    return 0
 
 
 def main(argv=None) -> int:

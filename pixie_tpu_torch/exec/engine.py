@@ -62,7 +62,11 @@ is what an agent reports with its fragment. An engine with a telemetry
 collector (``telemetry``, ``services/telemetry.py``; None on a bare
 engine) folds every finished trace into its own ``__queries__`` tables.
 A ``px.to_table`` sink appends its rows to the named table
-(``last_table_sinks``) and returns no client table. A query's
+(``last_table_sinks``) and returns no client table. A ``px.export`` sink
+turns its input, brought to the host once, into an OTLP payload
+(``exec/otel.py``) and hands it to ``export_otel``: kept in
+``otel_exports`` by default, pushed where a deployment binds an
+``OTLPHttpExporter`` there. A query's
 cancel handle and stats travel as arguments, and the state its helpers
 read back (join decision, resource report) lives on a thread-local
 scratch, so an agent's one-shot fragment and its live query's poll run
@@ -137,6 +141,7 @@ from .plan import (
     LimitOp,
     MapOp,
     MemorySourceOp,
+    OTelExportSinkOp,
     ResultSinkOp,
     TableSinkOp,
     UDTFSourceOp,
@@ -326,6 +331,9 @@ class Engine:
         self._last_resource_report = None
         # The last query's px.to_table writes, {table: rows}.
         self._last_table_sinks: dict = {}
+        # OTel egress (export_otel): made here, not at first use, so two
+        # concurrent queries cannot each make a list and lose an export.
+        self.otel_exports: list = []
         # Query-lifecycle traces (exec/trace.py): every execute_plan gets
         # one; an agent reads its usage after each fragment.
         self.tracer = Tracer()
@@ -826,6 +834,14 @@ class Engine:
                 hb = mat_input(node.inputs[0])
                 self.append_data(op.table, hb)
                 self.last_table_sinks[op.table] = hb.length
+            elif isinstance(op, OTelExportSinkOp):
+                # px.export: the input comes to the host once (one
+                # readback of a folded result), and every data spec of
+                # the export reads that batch.
+                from .otel import batch_to_otlp
+
+                payload = batch_to_otlp(mat_input(node.inputs[0]), op.spec)
+                self.export_otel(payload, op.spec.endpoint)
             elif isinstance(op, BridgeSinkOp):
                 payload = bridge_payload(
                     self, results[node.inputs[0]], stats, cancel
@@ -858,6 +874,13 @@ class Engine:
                 if not pure_scan:
                     results[nid] = self._run_fragment(st, stats, cancel)
         return outputs
+
+    def export_otel(self, payload: dict, endpoint) -> None:
+        """OTel egress. By default the payload is kept in memory
+        (``otel_exports``; ``list.append`` is atomic under concurrent
+        queries); a deployment binds an ``exec.otel.OTLPHttpExporter``
+        in its place to push it."""
+        self.otel_exports.append({"endpoint": endpoint, "payload": payload})
 
     @staticmethod
     def _note_scan_freshness(op, tablets, stats: QueryStats) -> None:

@@ -52,6 +52,31 @@ import time
 #: throughput: steady-state hand-offs never hit the timeout.
 _POLL_S = 0.05
 
+#: Hot regions of the per-window execution path, registered for the
+#: ``host-sync-hot-path`` lint (``analysis/lint.py``): a host sync inside
+#: any of these runs once per window and serializes the prefetch overlap
+#: this module exists to provide. Entries are "path-suffix:qualname-glob";
+#: the lint reads this assignment statically. The port's counterparts of
+#: the JAX package's window path, windowed join drivers and telemetry
+#: fold (its CPU-only native fold has none).
+PXLINT_HOT_REGIONS = (
+    "exec/pipeline.py:WindowPipeline*",
+    "exec/engine.py:Engine._fold_agg_state",
+    "exec/engine.py:Engine._staged_windows*",
+    "exec/engine.py:Engine._host_windows",
+    "exec/engine.py:Engine._stage_host",
+    "exec/engine.py:Engine._stage",
+    # Windowed device-join drivers: their per-window loops ride the same
+    # prefetch pipeline.
+    "exec/joins.py:_join_device_windowed*",
+    # Telemetry fold (services/telemetry.py): runs in Tracer.end_query on
+    # the query thread after the query ends; it must stay host-list
+    # arithmetic, or the next query waits behind it.
+    "services/telemetry.py:TelemetryCollector*",
+    "services/telemetry.py:ClusterTraceView*",
+    "services/telemetry.py:TableStatsCollector*",
+)
+
 
 class DeadlineEvent:
     """Event-like cancel handle that also trips at an absolute

@@ -1,4 +1,5 @@
-"""Always-on query-lifecycle tracing: spans, ring buffer, usage records.
+"""Always-on query-lifecycle tracing: spans, ring buffer, usage records,
+OTLP export.
 
 A port of the JAX package's ``exec/trace.py``. Every query gets a
 **trace**: a tree of spans stamped at existing host-side boundaries
@@ -25,9 +26,11 @@ return it with every fragment and merge, and the broker merges those.
 Consumers: ``Tracer.recent()`` / ``in_flight()``; histograms and
 counters on the shared metrics registry (``services/observability.py``);
 the slow-query log (``slow_query_threshold_ms``: offending queries dump
-their trace to the ``pixie_tpu_torch.slow_query`` logger). The OTLP
-export of finished traces comes with the OpenTelemetry slice: setting
-``trace_export_url`` raises.
+their trace to the ``pixie_tpu_torch.slow_query`` logger); the OTLP/HTTP
+push of finished traces to ``trace_export_url`` when that flag is set
+(``QueryTrace.to_otlp`` through ``exec/otel.py``'s
+``OTLPHttpExporter``). A failed push counts in
+``pixie_trace_export_errors_total`` and never fails the query.
 """
 
 from __future__ import annotations
@@ -158,7 +161,9 @@ class QueryResourceUsage:
 
 @dataclass
 class Span:
-    """One timed interval (the OTLP span's fields)."""
+    """One timed interval. ``to_otlp`` emits the OTLP-JSON span shape
+    ``exec/otel.py`` ships (plus trace and span ids, which the batch path
+    leaves to the collector)."""
 
     name: str
     trace_id: str
@@ -167,6 +172,21 @@ class Span:
     start_unix_nano: int = 0
     end_unix_nano: int = 0
     attributes: dict = field(default_factory=dict)
+
+    def to_otlp(self) -> dict:
+        from .otel import _attr_kvs
+
+        d = {
+            "name": self.name,
+            "traceId": self.trace_id,
+            "spanId": self.span_id,
+            "startTimeUnixNano": int(self.start_unix_nano),
+            "endTimeUnixNano": int(self.end_unix_nano),
+            "attributes": _attr_kvs(sorted(self.attributes.items())),
+        }
+        if self.parent_id:
+            d["parentSpanId"] = self.parent_id
+        return d
 
 
 class _SpanCtx:
@@ -498,6 +518,29 @@ class QueryTrace:
             d["dropped_spans"] = self.dropped_spans
         return d
 
+    def to_otlp(self) -> dict:
+        """OTLP-JSON ResourceSpans payload: the exact shape
+        ``OTLPHttpExporter`` POSTs to ``/v1/traces``."""
+        from .otel import _attr_kvs
+
+        res = [
+            ("service.name", "pixie-tpu-engine"),
+            ("query.script_hash", self.script_hash),
+        ]
+        if self.agent_id:
+            res.append(("service.instance.id", self.agent_id))
+        return {
+            "resourceSpans": [{
+                "resource": {
+                    "attributes": _attr_kvs(res)
+                },
+                "scopeSpans": [{
+                    "scope": {"name": "pixie_tpu_torch.exec.trace"},
+                    "spans": [s.to_otlp() for s in self.spans],
+                }],
+            }]
+        }
+
 
 class Tracer:
     """Per-engine trace sink: bounded ring of finished traces, the
@@ -518,6 +561,8 @@ class Tracer:
         # must never fail or slow the query that produced the trace.
         self._listeners: list = []
         self._closed = False
+        self._exporter = None
+        self._exporter_url = None
 
     def add_listener(self, fn) -> None:
         """Register ``fn(trace)`` to run on every finished trace."""
@@ -566,6 +611,10 @@ class Tracer:
                     "pixie_slow_queries_total",
                     "Queries over slow_query_threshold_ms",
                 ),
+                "export_errors": reg.counter(
+                    "pixie_trace_export_errors_total",
+                    "Failed OTLP trace pushes (trace_export_url)",
+                ),
                 "dropped": reg.counter(
                     "pixie_trace_dropped_total",
                     "Finished traces evicted from the ring buffer "
@@ -609,11 +658,6 @@ class Tracer:
         dispatcher that delivered the triggering message) — so a
         fragment executed inside an agent handler automatically joins
         the broker's trace without explicit plumbing."""
-        if str(get_flag("trace_export_url")):
-            raise NotImplementedError(
-                "the OTLP export of traces (trace_export_url) is not in "
-                "this slice of the port"
-            )
         if parent_ctx is None:
             parent_ctx = tracectx.current()
         tr = QueryTrace(
@@ -659,6 +703,7 @@ class Tracer:
         if trace.pipeline:
             m["stall"].observe(trace.pipeline.get("stall_secs", 0.0))
         self._slow_query_check(trace, m)
+        self._export(trace, m)
         self._notify(trace)
 
     def _notify(self, trace: QueryTrace) -> None:
@@ -683,6 +728,25 @@ class Tracer:
             trace.duration_s * 1e3, thresh_ms,
             json.dumps(trace.to_dict(), default=str),
         )
+
+    def _export(self, trace: QueryTrace, m: dict) -> None:
+        url = str(get_flag("trace_export_url"))
+        if not url or self._closed:
+            return
+        if self._exporter is None or self._exporter_url != url:
+            from .otel import OTLPHttpExporter
+
+            self._exporter = OTLPHttpExporter(url)
+            self._exporter_url = url
+        try:
+            self._exporter(trace.to_otlp())
+            trace.exported = True
+        except Exception:
+            # Telemetry never fails the query; the counter is the
+            # operator's signal that the collector is down. A shutdown
+            # racing a slow push (socket torn down mid-POST) lands here
+            # too: counted, not raised.
+            m["export_errors"].inc()
 
     # -- accessors (the /debug/queryz surface) -------------------------------
     def in_flight(self) -> list:

@@ -7,7 +7,10 @@ The port's own copies of the JAX package's ring and join sources:
   ``drop_before`` (the cold tier's demotion handoff), the time index,
   copy-out reads and the stats buffer;
 - ``hash_join.cc``: the build + probe hash join of a CPU engine's N:M
-  joins (``exec/joins.py`` ``host_hash``).
+  joins (``exec/joins.py`` ``host_hash``);
+- ``pxclient.cc``: the native netbus client, a program of its own
+  (``build_executable("pxclient")`` builds
+  ``pixie_tpu_torch/_build/pxclient``).
 
 ``load(name)`` compiles ``<name>.cc`` with ``g++`` into
 ``pixie_tpu_torch/_build/lib<name>.so`` when the library is missing or
@@ -92,6 +95,37 @@ def build(names=LIBRARIES) -> dict:
     if failed:
         raise NativeBuildError("\n".join(failed))
     return out
+
+
+#: g++ flags of a program (not a library) built by ``build_executable``.
+EXE_FLAGS = ("-O3", "-std=c++17", "-pthread")
+
+
+def build_executable(name: str) -> str:
+    """The path of the program built from ``<name>.cc`` into
+    ``pixie_tpu_torch/_build/``, compiled first with ``g++`` when it is
+    missing or older than its source. Raises ``NativeBuildError`` when
+    ``g++`` is missing or the compile fails: no caller skips or degrades
+    on its own."""
+    out = BUILD_DIR / name
+    src = SRC_DIR / f"{name}.cc"
+    with _LOCK:
+        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+            return str(out)
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise NativeBuildError(f"g++ not found on PATH; cannot build {src}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{name}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.run([cxx, *EXE_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise NativeBuildError(
+                f"g++ failed to build {src} (exit {proc.returncode}):\n"
+                f"{proc.stderr}")
+        os.replace(tmp, out)
+        return str(out)
 
 
 def load(name: str) -> ctypes.CDLL:

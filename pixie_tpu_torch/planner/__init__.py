@@ -10,7 +10,8 @@ The reference compiles PxL to a protobuf plan shipped to C++ exec nodes;
 here the compiler emits the exec-layer ``Plan`` DAG directly, and the
 fragment compiler turns maximal linear chains of it into one window fold.
 The modules are copies of the JAX package's planner with imports
-repointed; pxtrace and OTel export raise ``PxLError``.
+repointed (``otel_module.py`` is ``px.otel``); pxtrace raises
+``PxLError``.
 """
 
 from .compiler import CompiledScript, CompilerState, compile_pxl

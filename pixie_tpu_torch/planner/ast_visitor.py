@@ -325,6 +325,18 @@ class ASTVisitor:
                 return getattr(obj, attr)
             except PxLError as e:
                 raise PxLError(e.raw_msg, node.lineno)
+        from .otel_module import OTelModule, _MetricNamespace, _TraceNamespace
+
+        if isinstance(
+            obj, (OTelModule, _MetricNamespace, _TraceNamespace)
+        ) and not attr.startswith("_"):
+            try:
+                return getattr(obj, attr)
+            except AttributeError:
+                raise PxLError(
+                    f"{type(obj).__name__} has no attribute {attr!r}",
+                    node.lineno,
+                ) from None
         raise PxLError(
             f"cannot access attribute {attr!r} on {type(obj).__name__}",
             node.lineno,

@@ -9,9 +9,9 @@ that implements it (partial-agg state merge, row gather) and the mesh
 axes it runs over (the ``agents`` axis of data agents, plus ``kelvin``
 when a second merge tier exists).
 
-A copy of the JAX package's distributed planner. This slice of the port
-plans, verifies and bounds a distributed plan; executing one (bridges,
-the broker, the agents) is a later slice.
+A copy of the JAX package's distributed planner: it plans, verifies and
+bounds a distributed plan; ``exec/bridge.py`` and ``services/`` (the
+broker and the agents) execute one.
 """
 
 from .coordinator import Coordinator, DistributedPlan, prune_unavailable_sources

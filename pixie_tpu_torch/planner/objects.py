@@ -548,3 +548,20 @@ class PlanBuilder:
             raise PxLError("px.to_table() needs a table name", lineno)
         self.plan.add(TableSinkOp(name), [df.node_id])
         self.n_table_sinks += 1
+
+    def export_otel(self, df: DataFrameObj, spec, lineno=None):
+        from ..exec.plan import OTelExportSinkOp
+
+        if not isinstance(df, DataFrameObj):
+            raise PxLError("px.export() expects a DataFrame", lineno)
+        missing = {
+            c
+            for c in spec.referenced_columns()
+            if not df.relation.has_column(c)
+        }
+        if missing:
+            raise PxLError(
+                f"px.export: columns {sorted(missing)} not in dataframe "
+                f"{df.relation}", lineno)
+        self.plan.add(OTelExportSinkOp(spec), [df.node_id])
+        self.n_exports += 1

@@ -129,11 +129,13 @@ class PxModule:
     def export(self, df, spec):
         """px.export(df, px.otel.Data(...)) — OTel exporter surface
         (``planner/objects/exporter.h``)."""
-        raise PxLError("px.export is not in this slice of the port")
+        self._builder.export_otel(df, spec)
 
     @property
     def otel(self):
-        raise PxLError("px.otel is not in this slice of the port")
+        from .otel_module import OTelModule
+
+        return OTelModule()
 
     def debug(self, df, name: str = "debug"):
         self._builder.display(df, "_" + name)

@@ -16,13 +16,16 @@ own traces into telemetry tables (``telemetry.py``). ``BrokerReplica``
 (``broker_ha.py``) runs N brokers on one bus with leases, epoch fencing
 and failover of in-flight queries; ``FaultInjector`` (``faults.py``)
 drops, delays, duplicates and partitions bus traffic from one seeded
-RNG; ``load_tester.py`` and ``chaos.py`` drive them under load.
+RNG; ``load_tester.py`` and ``chaos.py`` drive them under load. The
+operator's ``Reconciler`` (``operator.py``) keeps the deployed roles'
+processes at their replica counts.
 """
 
 from .agent import Agent, KelvinAgent, PEMAgent
 from .broker_ha import BrokerReplica
 from .faults import FaultInjector
 from .msgbus import BusTimeout, MessageBus
+from .operator import Reconciler, RoleSpec, specs_from_config
 from .query_broker import (
     AdmissionError,
     AgentLost,
@@ -54,6 +57,9 @@ __all__ = [
     "QueryBroker",
     "QueryResultForwarder",
     "QueryTimeout",
+    "Reconciler",
+    "RoleSpec",
     "TelemetryCollector",
     "enable_self_telemetry",
+    "specs_from_config",
 ]

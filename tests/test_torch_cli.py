@@ -213,13 +213,15 @@ PKGS = {
 
 
 @contextlib.contextmanager
-def _served(pkg_name: str, secret: str = ""):
-    """Two PEMs and a Kelvin behind a served broker and a BusServer."""
+def _served(pkg_name: str, secret: str = "", agents=None):
+    """Two PEMs and a Kelvin behind a served broker and a BusServer;
+    ``agents``, a list, receives the agents."""
     pkg = PKGS[pkg_name]
     s = pkg.services
     bus = s.MessageBus()
     tracker = s.AgentTracker(bus, expiry_s=60.0, check_interval_s=60.0)
-    agents, broker, server = [], None, None
+    agents = [] if agents is None else agents
+    broker, server = None, None
     try:
         rng = np.random.default_rng(0)
         for i in range(2):
@@ -552,3 +554,176 @@ def test_deploy_broker_under_ha_and_lockdep(tmp_path):
         rep.close()
         bus.close()
     assert port_out == jax_out == "broker: broker-7\n"
+
+
+class TestNativeClient:
+    """``native/pxclient.cc``, the port's copy of the C++ netbus client
+    (the Go pxapi's counterpart): the framed-TCP wire codec, HMAC token
+    signing and result printing without Python on the client side
+    (``tests/test_cli.py``'s cases). It is built from the repo at first
+    use, and a failed build raises: nothing skips. Its output against a
+    port cluster equals its output, and the JAX-built client's, against a
+    JAX cluster over the same rows, because the result batches and the
+    stream updates have the same wire bytes in both packages."""
+
+    @pytest.fixture(scope="class")
+    def binaries(self):
+        from pixie_tpu.native import build_executable as jax_build
+        from pixie_tpu_torch.native import build_executable
+
+        port = build_executable("pxclient")
+        jax = jax_build("pxclient")
+        assert jax is not None, "the JAX package's client did not build"
+        return port, jax
+
+    @staticmethod
+    def _client(binary, addr, *argv):
+        port = addr.rpartition(":")[2]
+        return subprocess.run([binary, "--port", port, *argv],
+                              capture_output=True, text=True, timeout=60)
+
+    def _everywhere(self, binaries, *argv, secret=""):
+        """{(client, cluster): stdout} for both clients against a port
+        and a JAX cluster over the same rows; every run exits 0."""
+        outs = {}
+        for cluster in ("port", "jax"):
+            with _served(cluster, secret=secret) as (addr, _broker):
+                for client, binary in zip(("port", "jax"), binaries):
+                    p = self._client(binary, addr, *argv)
+                    assert p.returncode == 0, (client, cluster, p.stderr)
+                    outs[(client, cluster)] = p.stdout
+        return outs
+
+    def test_execute_prints_table(self, binaries):
+        outs = self._everywhere(binaries, "--pxl", QUERY)
+        want = outs[("jax", "jax")]
+        assert all(v == want for v in outs.values()), outs
+        out = outs[("port", "port")]
+        assert "[output] 3 rows" in out
+        assert "svc-0" in out and "svc-2" in out
+        counts = [int(line.split("\t")[1]) for line in out.splitlines()
+                  if line.startswith("svc-")]
+        assert sum(counts) == 3000
+
+    def test_float_and_bool_columns_print_alike(self, binaries):
+        q = QUERY.replace(
+            "agg(n=('latency_ns', px.count))",
+            "agg(n=('latency_ns', px.count), m=('latency_ns', px.mean))\n"
+            "df.big = df.n > 1000")
+        outs = self._everywhere(binaries, "--pxl", q)
+        assert len(set(outs.values())) == 1, outs
+        rows = [ln.split("\t") for ln in outs[("port", "port")].splitlines()
+                if ln.startswith("svc-")]
+        assert len(rows) == 3
+        assert all(r[3] in ("true", "false") for r in rows)
+        assert all(1000 < float(r[2]) < 1_000_000 for r in rows)
+
+    def test_list_scripts(self, binaries):
+        outs = self._everywhere(binaries, "--list")
+        assert len(set(outs.values())) == 1
+        assert "px/http_stats" in outs[("port", "port")].splitlines()
+
+    def test_stream_prints_two_updates(self, binaries):
+        """``--stream --updates 2`` while rows keep arriving at a PEM (a
+        live query pushes an update when its answer changes): two
+        updates, each the merged table, then a server-side cancel and
+        exit 0, against either cluster."""
+        import threading
+
+        for cluster in ("port", "jax"):
+            agents = []
+            with _served(cluster, agents=agents) as (addr, _broker):
+                stop = threading.Event()
+
+                def feed(pem=agents[0]):
+                    t0 = 10_000
+                    while not stop.wait(0.2):
+                        pem.append_data("http_events", {
+                            "time_": np.arange(t0, t0 + 30, dtype=np.int64),
+                            "latency_ns": np.full(30, 5000),
+                            "resp_status": np.full(30, 200),
+                            "service": ["svc-1"] * 30,
+                            "req_path": ["/api/v0/x"] * 30,
+                        })
+                        t0 += 30
+
+                feeder = threading.Thread(target=feed, daemon=True)
+                feeder.start()
+                try:
+                    p = self._client(binaries[0], addr, "--stream",
+                                     "--updates", "2", "--pxl", QUERY)
+                finally:
+                    stop.set()
+                    feeder.join(timeout=5)
+                assert p.returncode == 0, (cluster, p.stderr)
+                heads = [ln for ln in p.stdout.splitlines()
+                         if ln.startswith("-- update")]
+                assert heads == ["-- update seq=0 mode=replace",
+                                 "-- update seq=1 mode=replace"], p.stdout
+                assert p.stdout.count("[output] 3 rows") == 2, p.stdout
+                counts = [int(ln.split("\t")[1])
+                          for ln in p.stdout.splitlines()
+                          if ln.startswith("svc-")]
+                assert sum(counts[:3]) >= 3000
+                assert sum(counts[3:]) > sum(counts[:3])
+
+    def test_signed_token_accepted_and_required(self, binaries):
+        with _served("port", secret="hunter2") as (addr, _broker):
+            ok = self._client(binaries[0], addr, "--secret", "hunter2",
+                              "--pxl", QUERY)
+            assert ok.returncode == 0, ok.stderr
+            assert "[output] 3 rows" in ok.stdout
+            bad = self._client(binaries[0], addr, "--secret", "wrong",
+                               "--pxl", QUERY)
+            assert bad.returncode != 0
+            assert "auth" in bad.stderr.lower()
+
+    def test_result_and_update_bytes_equal_jax(self):
+        """What the client decodes: a reply's tables and a stream update
+        ({table, batch, seq, mode}) encode to the same bytes in both
+        packages' wire codecs."""
+        import pixie_tpu.services.wire as jax_wire
+        import pixie_tpu_torch.services.wire as port_wire
+
+        q = QUERY.replace(
+            "agg(n=('latency_ns', px.count))",
+            "agg(n=('latency_ns', px.count), m=('latency_ns', px.mean))")
+        enc = {"port": port_wire.encode, "jax": jax_wire.encode}
+        got = {}
+        for name in ("port", "jax"):
+            with _served(name) as (_addr, broker):
+                res = broker.execute_script(q, timeout_s=30)
+                tables = {t: res["tables"][t] for t in sorted(res["tables"])}
+                updates = []
+                h = broker.execute_script_streaming(
+                    q, on_update=updates.append, poll_interval_s=0.05)
+                try:
+                    assert _wait_for(lambda: any("batch" in u
+                                                 for u in updates), 10.0)
+                finally:
+                    h.cancel()
+                u = next(u for u in updates if "batch" in u)
+                got[name] = (
+                    enc[name]({"tables": tables}),
+                    enc[name]({k: u[k] for k in ("table", "batch", "seq",
+                                                 "mode")}),
+                )
+        assert got["port"] == got["jax"]
+
+    def test_build_raises_without_a_compiler(self, monkeypatch, tmp_path):
+        from pixie_tpu_torch import native
+
+        monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+        monkeypatch.setenv("PATH", str(tmp_path))
+        with pytest.raises(native.NativeBuildError, match="g\\+\\+ not found"):
+            native.build_executable("pxclient")
+
+    def test_failed_compile_raises_with_stderr(self, monkeypatch, tmp_path):
+        from pixie_tpu_torch import native
+
+        (tmp_path / "pxclient.cc").write_text("int main( {\n")
+        monkeypatch.setattr(native, "SRC_DIR", tmp_path)
+        monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+        with pytest.raises(native.NativeBuildError, match="exit 1"):
+            native.build_executable("pxclient")
+        assert not list((tmp_path / "_build").iterdir())

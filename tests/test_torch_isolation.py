@@ -13,7 +13,9 @@ loaded, and nothing falls back to the CPU or to a plain version on its
 own: an engine or an agent built without an engine raises when there is
 no card, and a deploy role, ``cli run --local``, the load tester's
 ``--local`` or the chaos soak started without a card and without
-``PIXIE_TPU_TORCH_DEVICE`` exits non-zero."""
+``PIXIE_TPU_TORCH_DEVICE`` exits non-zero, and so does ``deploy
+operator``. Neither does an OTel export pushed over OTLP with the
+operator and the source lint loaded."""
 
 import ast
 import os
@@ -320,16 +322,77 @@ print("ok")
     assert res.stdout.strip().endswith("ok")
 
 
+def test_export_operator_and_lint_load_neither_jax_nor_the_jax_package():
+    """A CPU query whose ``px.export`` is pushed by ``OTLPHttpExporter``
+    to a loopback receiver, with the trace push on, the operator's
+    ``Reconciler`` over one short-lived child, and the source lint over
+    the port's OTel module: none of it loads JAX or the JAX package."""
+    code = """
+import http.server, json, sys, threading
+import numpy as np
+from pixie_tpu_torch import Engine
+from pixie_tpu_torch.config import override_flag
+from pixie_tpu_torch.exec.otel import OTLPHttpExporter
+from pixie_tpu_torch.services import Reconciler, RoleSpec
+from pixie_tpu_torch.analysis.lint import run_lint
+import pixie_tpu_torch.planner.otel_module, pixie_tpu_torch.native
+got = []
+class H(http.server.BaseHTTPRequestHandler):
+    def do_POST(self):
+        got.append((self.path, json.loads(self.rfile.read(
+            int(self.headers["Content-Length"])))))
+        self.send_response(200)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+    def log_message(self, *a):
+        pass
+httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+t = threading.Thread(target=httpd.serve_forever, daemon=True)
+t.start()
+url = "http://127.0.0.1:%d" % httpd.server_address[1]
+eng = Engine(window_rows=1024, device="cpu")
+eng.append_data("t", {"time_": np.arange(300), "v": np.arange(300) % 3})
+eng.export_otel = OTLPHttpExporter(url)
+with override_flag("trace_export_url", url):
+    eng.execute_query(
+        "import px\\ndf = px.DataFrame(table='t')\\n"
+        "df = df.groupby('v').agg(n=('v', px.count))\\n"
+        "px.export(df, px.otel.Data(data=[\\n"
+        "    px.otel.metric.Gauge(name='n', value=df.n)]))\\n")
+httpd.shutdown()
+httpd.server_close()
+assert [p for p, _b in got] == ["/v1/metrics", "/v1/traces"], got
+rec = Reconciler({"s": RoleSpec("s", command=(sys.executable, "-c", "0"))})
+rec.reconcile()
+rec.stop()
+assert run_lint([pixie_tpu_torch.exec.otel.__file__]).ok
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("argv", [
     ["pixie_tpu_torch.deploy", "broker"],
     ["pixie_tpu_torch.deploy", "pem"],
     ["pixie_tpu_torch.deploy", "kelvin"],
+    ["pixie_tpu_torch.deploy", "operator"],
     ["pixie_tpu_torch.cli", "run", "px/http_stats", "--local",
      "--synthetic", "100"],
     ["pixie_tpu_torch.services.load_tester", "--local", "--rows", "100"],
     ["pixie_tpu_torch.services.chaos", "--agents", "4"],
-], ids=["broker", "pem", "kelvin", "cli_run_local", "load_tester_local",
-        "chaos"])
+], ids=["broker", "pem", "kelvin", "operator", "cli_run_local",
+        "load_tester_local", "chaos"])
 def test_entry_point_without_a_card_exits_non_zero(argv, tmp_path):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "PIXIE_TPU_TORCH_DEVICE")}

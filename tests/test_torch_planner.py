@@ -195,6 +195,19 @@ def test_script_copies_match_jax_package(name):
     "df.svc = df.ctx['service']\npx.display(df)\n",
 ])
 def test_features_outside_the_slice_raise(script):
+    """pxtrace raises; ``df.ctx`` without a metadata state raises as in
+    the JAX package; ``px.export`` is in the port now, and both packages
+    compile it to the same plan."""
+    if "px.export" in script:
+        tables = {"http_events": JaxRelation(
+            [(n, JaxDataType[t]) for n, t in HTTP_EVENTS])}
+        for got, ref in _compile_both(script, tables):
+            assert _plan_shape(got.plan) == _plan_shape(ref.plan)
+            assert got.outputs == ref.outputs == []
+            assert got.n_exports == ref.n_exports == 1
+            assert [type(n.op).__name__ for n in got.plan.nodes.values()
+                    ] == ["MemorySourceOp", "OTelExportSinkOp"]
+        return
     state = CompilerState(
         schemas={"http_events": Relation(
             [(n, DataType[t]) for n, t in HTTP_EVENTS])},

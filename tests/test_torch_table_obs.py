@@ -274,9 +274,17 @@ class TestProfilerWiring:
             store, coll = _self_profiler("broker")
         assert store is not None
         try:
-            for conn in coll._connectors:
-                conn.transfer_data(coll, coll._data_tables)
-            coll.flush()
+            # The 100 Hz sampler may not have taken a sample when the
+            # first transfer runs (a loaded host), so transfer until it
+            # has pushed rows, within the file's bounded wait.
+            def pushed():
+                for conn in coll._connectors:
+                    conn.transfer_data(coll, coll._data_tables)
+                coll.flush()
+                t = store.get_table("stack_traces.beta")
+                return t is not None and t.num_rows > 0
+
+            _wait(pushed)
             t = store.get_table("stack_traces.beta")
             assert t is not None and t.num_rows > 0
             assert profile_summary(agent_id="broker", top=1)

@@ -2,12 +2,15 @@
 package's, for the same plans over the same seeded rows: the span names
 and their tree, the usage record's fields and counters, the fragment
 records, the stats spine behind ``Engine.last_stats``, the usage merge
-the broker does, the slow-query log and the refusal of the OTLP export.
+the broker does, the slow-query log and the OTLP export of traces.
 """
 
 from __future__ import annotations
 
+import http.server
+import json
 import logging
+import threading
 from dataclasses import fields
 
 import numpy as np
@@ -172,12 +175,91 @@ def test_slow_query_log(engines, caplog):
     assert any("slow query" in r.message for r in caplog.records)
 
 
-def test_trace_export_url_is_refused():
-    with override_flag("trace_export_url", "http://localhost:4318"):
-        with pytest.raises(NotImplementedError, match="not in this slice"):
-            Tracer().begin_query(script="x")
-    with jax_override_flag("trace_export_url", ""):
-        JaxTracer().begin_query(script="x")  # the JAX tracer exports
+def _otlp_receiver():
+    """A stdlib OTLP/HTTP receiver on 127.0.0.1 recording (path, body)."""
+    received = []
+
+    class H(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            received.append((self.path, json.loads(body)))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    return httpd, t, received
+
+
+def _otlp_shape(payload):
+    """The package-neutral form of a pushed trace: the payload's keys,
+    the resource attribute keys, the span names (as ``_names``) and each
+    span's fields (ids and times differ from run to run, and so do some
+    per-package span attributes)."""
+    rs = payload["resourceSpans"][0]
+    ss = rs["scopeSpans"][0]
+    return (
+        list(payload), list(rs), list(ss),
+        [kv["key"] for kv in rs["resource"]["attributes"]],
+        sorted({s["name"] for s in ss["spans"]
+                if not s["name"].startswith("window.")}),
+        sorted({(tuple(s), "parentSpanId" in s) for s in ss["spans"]}),
+    )
+
+
+def test_trace_export_url_is_refused(engines):
+    """No longer refused: with ``trace_export_url`` set, each finished
+    trace is pushed to ``/v1/traces`` in the JAX tracer's OTLP shape
+    (tests/test_trace.py's round trip); a collector that is down counts
+    in ``pixie_trace_export_errors_total`` and never fails the query."""
+    from pixie_tpu.services.observability import MetricsRegistry as JaxReg
+    from pixie_tpu_torch.services.observability import MetricsRegistry
+
+    eng, ref = engines
+    httpd, thread, received = _otlp_receiver()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with override_flag("trace_export_url", url):
+            eng.execute_query(AGG_Q)
+        with jax_override_flag("trace_export_url", url):
+            ref.execute_query(AGG_Q)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=5)
+    assert [p for p, _b in received] == ["/v1/traces", "/v1/traces"]
+    got, want = received[0][1], received[1][1]
+    assert _otlp_shape(got) == _otlp_shape(want)
+    spans = got["resourceSpans"][0]["scopeSpans"][0]["spans"]
+    root = spans[0]
+    assert root["name"] == "query" and "parentSpanId" not in root
+    assert root["traceId"] == eng.tracer.last().trace_id
+    assert len(root["traceId"]) == 32 and len(root["spanId"]) == 16
+    assert all(s["traceId"] == root["traceId"] for s in spans)
+    ids = {s["spanId"] for s in spans}
+    assert all(s["parentSpanId"] in ids for s in spans[1:])
+    assert eng.tracer.last().exported
+    res = {kv["key"]: kv["value"]["stringValue"]
+           for kv in got["resourceSpans"][0]["resource"]["attributes"]}
+    assert res["service.name"] == "pixie-tpu-engine"
+    assert got == eng.tracer.last().to_otlp()
+
+    # The collector is down: the query answers, the failure is counted.
+    reg, jreg = MetricsRegistry(), JaxReg()
+    t, jt = Tracer(registry=reg), JaxTracer(registry=jreg)
+    down = "http://127.0.0.1:9"
+    with override_flag("trace_export_url", down):
+        t.end_query(t.begin_query(script="x"))
+    with jax_override_flag("trace_export_url", down):
+        jt.end_query(jt.begin_query(script="x"))
+    assert "pixie_trace_export_errors_total 1" in reg.render()
+    assert "pixie_trace_export_errors_total 1" in jreg.render()
+    assert not t.last().exported
 
 
 def test_ring_buffer_and_window_sampling(engines):
