@@ -116,7 +116,23 @@ without them. In order it:
    the netbus for 30 s (tests/test_soak.py's 90 s, cut); one PEM is
    SIGKILLed, the operator restarts it within its backoff, and every
    query after it re-registers answers over both PEMs; at the end no
-   child is left and the card's used bytes are back at the base;
+   child is left and the card's used bytes are back at the base. Then
+   ``tracepoints``: the cluster layout (4 PEMs and a Kelvin on the card)
+   with a ``TracepointRegistry`` on the broker; one pxtrace script
+   through ``broker.execute_script`` upserts ``app_tp`` on each PEM's
+   ``app.handle``, 2^19 seeded calls per PEM (drained every 2^15 calls,
+   none dropped) fill ``app_calls``, and one script's FLOAT64 count,
+   mean and max of ``size_kb`` by service (``dense_fold``) and quantiles
+   of ``latency_ns`` by service (``hist_fold``) are held to numpy; then
+   a script that mutates and queries, a redeploy (one row per call), an
+   unknown symbol (refused), ``DeleteTracepoint`` (the handlers
+   restored) and ``native_probe_plan`` over a ``g++ -g`` fixture. Then
+   ``capture``: 32 capture taps on one collector, 2^19 HTTP/1 exchanges
+   and 2^16 of each of the ten other protocols, parsed with no error
+   into an engine on the card, and twelve scripts (px/http_stats,
+   px/service_stats, http_stats_float64 and the nine protocols' stats
+   scripts) held to the CPU engine over the same rows, px/http_stats
+   also to numpy over the exchanges;
 7. the group_by phase: which uint64 ops the card's PyTorch has; a
    2^23-row process_stats replay (20,000 upids in 2,000 pods, UINT128
    keys, 0.9 GB resident); a filtered row chain that carries the upid
@@ -5393,6 +5409,466 @@ def _pid_alive(pid: int) -> bool:
         return False
 
 
+TP_PEMS = 4
+TP_CALLS = 1 << 19  # handler calls per PEM: 2^21 tracepoint rows in all
+TP_POLL = 1 << 15  # calls between drains: half the connector's 2^16-row ring
+TP_SERVICES = 32
+TP_STATUSES = (200,) * 92 + (404,) * 4 + (500,) * 3 + (503,)
+TP_TURNS = 3
+TP_DEPLOY = """import pxtrace
+import px
+
+@pxtrace.probe('app.handle')
+def probe_fn():
+    return [{
+        'latency_ns': pxtrace.FunctionLatency(),
+        'service': pxtrace.ArgExpr('service', type='string'),
+        'status': pxtrace.ArgExpr('status'),
+        'size_kb': pxtrace.ArgExpr('size_kb', type='float64'),
+    }]
+
+pxtrace.UpsertTracepoint('app_tp', 'app_calls', probe_fn, ttl='10m')
+"""
+TP_QUERY_BODY = """df = px.DataFrame(table='app_calls')
+sizes = df.groupby('service').agg(
+    n=('size_kb', px.count),
+    size_mean=('size_kb', px.mean),
+    size_max=('size_kb', px.max),
+)
+px.display(sizes, 'sizes')
+lat = df.groupby('service').agg(lat_q=('latency_ns', px.quantiles))
+lat.p50 = px.pluck_float64(lat.lat_q, 'p50')
+lat.p99 = px.pluck_float64(lat.lat_q, 'p99')
+px.display(lat[['service', 'p50', 'p99']], 'latency')
+"""
+TP_QUERY = "import px\n" + TP_QUERY_BODY
+#: tests/test_dwarf.py's fixture: a function whose arguments the
+#: dwarvifier step (``native_probe_plan``) resolves from DWARF.
+TP_DWARF_SRC = """
+struct conn_info { long id; int port; char proto; double rtt; };
+typedef long duration_ns;
+extern "C" __attribute__((noinline))
+long process_request(struct conn_info* conn, int status, duration_ns latency) {
+  return conn->id + status + latency;
+}
+int main() {
+  struct conn_info c = {1, 80, 't', 0.5};
+  return (int)process_request(&c, 200, 5);
+}
+"""
+
+
+class TpApp:
+    """The traced program: a request handler that each PEM registers as
+    its ``app.handle`` symbol. Its work grows with ``size_kb``, so the
+    traced latencies spread over a continuous range."""
+
+    def handle(self, service, status, size_kb):
+        for _ in range(int(size_kb)):
+            pass
+        return status < 400
+
+
+def tp_args(i: int, n: int):
+    """PEM ``i``'s handler arguments: service index, status, size_kb."""
+    rng = np.random.default_rng([SEED, 15, i])
+    return (rng.integers(0, TP_SERVICES, n),
+            np.asarray(TP_STATUSES)[rng.integers(0, len(TP_STATUSES), n)],
+            rng.lognormal(2.0, 1.0, n))
+
+
+def tp_call(app, args, lo: int, hi: int) -> float:
+    """Calls ``app.handle`` with arguments [lo, hi); returns seconds."""
+    svc, status, size = (a[lo:hi].tolist() for a in args)
+    names = [f"svc-{s}" for s in range(TP_SERVICES)]
+    handle = app.handle
+    t0 = time.perf_counter()
+    for s, st, kb in zip(svc, status, size):
+        handle(names[s], st, kb)
+    return time.perf_counter() - t0
+
+
+def tp_wait(pred, what: str, timeout_s: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.01)
+
+
+def tp_landed(pem, rows: int) -> None:
+    """Drains ``pem`` until its ``app_calls`` table holds ``rows`` rows,
+    then holds it to exactly that. The agent's collector thread drains
+    the same connector on its own cadence, and a batch it has taken from
+    the ring lands in the table only once that thread has built its
+    columns, so one drain right after the calls can come up short."""
+    table = pem.engine.tables["app_calls"]
+
+    def landed():
+        pem.poll_tracepoints()
+        return table.num_rows >= rows
+
+    tp_wait(landed, f"{pem.agent_id}: {table.num_rows} of {rows} rows")
+    assert table.num_rows == rows, (pem.agent_id, table.num_rows, rows)
+    assert not pem.collector.errors, pem.collector.errors
+
+
+def tp_check(res, want: dict, lat: dict) -> None:
+    """The group-bys against numpy: count exact, size mean and max rtol
+    1e-5 (``sizes``); p50 and p99 rtol 0.05 against the table's own
+    latencies (``latency``)."""
+    sizes = res["tables"]["sizes"].to_pydict()
+    assert sorted(sizes["service"]) == sorted(want), sizes["service"]
+    for s, n, mean, mx in zip(sizes["service"], sizes["n"],
+                              sizes["size_mean"], sizes["size_max"]):
+        wn, wmean, wmax = want[s]
+        assert n == wn, f"{s} count {n} vs {wn}"
+        np.testing.assert_allclose([mean, mx], [wmean, wmax],
+                                   rtol=LIB_FLOAT_RTOL, err_msg=s)
+    q = res["tables"]["latency"].to_pydict()
+    assert sorted(q["service"]) == sorted(lat), q["service"]
+    for s, p50, p99 in zip(q["service"], q["p50"], q["p99"]):
+        np.testing.assert_allclose([p50, p99], np.quantile(lat[s], [0.5, 0.99]),
+                                   rtol=LIB_QUANTILE_RTOL, err_msg=s)
+
+
+def tp_dwarf() -> dict:
+    """``native_probe_plan`` over tests/test_dwarf.py's fixture built
+    with ``g++ -g`` (host code), checked against its known layout."""
+    import shutil
+    import tempfile
+
+    from pixie_tpu_torch.ingest.dynamic import native_probe_plan
+
+    if shutil.which("g++") is None:
+        return {"skipped": "no g++"}
+    with tempfile.TemporaryDirectory() as d:
+        src, out = os.path.join(d, "fix.cc"), os.path.join(d, "fix")
+        with open(src, "w") as fh:
+            fh.write(TP_DWARF_SRC)
+        subprocess.run(["g++", "-g", "-O0", "-o", out, src], check=True,
+                       capture_output=True)
+        plan = native_probe_plan(out, "process_request")
+    args = plan["args"]
+    assert plan["address"] > 0
+    assert list(args) == ["conn", "status", "latency"], args
+    assert (args["conn"]["type"], args["conn"]["size"]) == ("struct conn_info*", 8)
+    assert (args["status"]["type"], args["status"]["size"]) == ("int", 4)
+    assert (args["latency"]["type"], args["latency"]["size"]) == ("duration_ns", 8)
+    assert all(a["frame_offset"] is not None for a in args.values())
+    return {"function": plan["function"], "args": args}
+
+
+def phase_tracepoints(device, calls: int = TP_CALLS, poll: int = TP_POLL,
+                      turns: int = TP_TURNS, profile: bool = True) -> dict:
+    """Dynamic tracing through the cluster path: the cluster layout (4
+    PEMs and a Kelvin, each engine on ``device``, a tracker) and a broker
+    with a ``TracepointRegistry``. Each PEM registers ``app.handle`` on a
+    ``TpApp`` of its own; one pxtrace script through
+    ``broker.execute_script`` upserts ``app_tp`` on it (outputs
+    ``latency_ns``, ``service``, ``status``, ``size_kb``), then each
+    handler is called ``calls`` times with seeded arguments, its PEM
+    drained (``poll_tracepoints``) every ``poll`` calls so the 2^16-row
+    ring never drops a row, and each PEM's table must hold exactly its
+    calls. The group-by of ``TP_QUERY`` (a warm-up, ``turns`` timed
+    turns with the launch counters set to 0 first and read after, one
+    under torch.profiler): one script, its FLOAT64 count, mean and max of
+    ``size_kb`` by service (``dense_fold``) and its quantiles of
+    ``latency_ns`` by service (``hist_fold``), held to numpy
+    (``tp_check``); both kernels must have launched on the card. Then a script that both
+    mutates and queries, a redeploy under the same name (one row per
+    call after it), a deploy on an unknown symbol (refused with
+    ``tracepoint deploy failed``) and ``DeleteTracepoint`` (the handlers
+    restored); and ``native_probe_plan`` over a ``g++ -g`` fixture.
+    Returns {kernel: launches per query}."""
+    from pixie_tpu_torch.exec.engine import QueryError
+    from pixie_tpu_torch.services.tracepoints import TracepointRegistry
+
+    t_phase = time.perf_counter()
+    c = Cluster(device, pems=TP_PEMS)
+    reg = None
+    try:
+        reg = c.broker.tracepoints = TracepointRegistry(c.bus, c.tracker)
+        apps = [TpApp() for _ in c.pems]
+        for p, app in zip(c.pems, apps):
+            p.trace_targets.register("app.handle", app, "handle")
+        tp_wait(lambda: len(c.tracker.distributed_state().pems) == TP_PEMS,
+                "PEMs never registered")
+        args = [tp_args(i, calls) for i in range(TP_PEMS)]
+        plain = tp_call(apps[0], args[0], 0, poll) / poll
+        t0 = time.perf_counter()
+        res = c.broker.execute_script(TP_DEPLOY, mutation_timeout_s=60.0)
+        deploy_s = time.perf_counter() - t0
+        assert res["mutations"] == {"app_tp": "RUNNING"}, res
+        tp_wait(lambda: all("app_tp" in p._tracepoints for p in c.pems),
+                "a PEM never attached app_tp")
+        tp_wait(lambda: sum(a.has_table("app_calls") for a in
+                            c.tracker.distributed_state().pems) == TP_PEMS,
+                "a PEM's app_calls never reached the tracker")
+        call_s, drains = 0.0, []
+        for lo in range(0, calls, poll):
+            for p, app, a in zip(c.pems, apps, args):
+                call_s += tp_call(app, a, lo, min(lo + poll, calls))
+                t1 = time.perf_counter()
+                p.poll_tracepoints()
+                drains.append(time.perf_counter() - t1)
+        for p in c.pems:
+            tp_landed(p, calls)
+        lat: dict = {}
+        for p in c.pems:
+            d = p.engine.tables["app_calls"].read_all().to_pydict()
+            for s in np.unique(d["service"]):
+                lat.setdefault(s, []).append(d["latency_ns"][d["service"] == s])
+        lat = {s: np.concatenate(v) for s, v in lat.items()}
+        svc = np.concatenate([a[0] for a in args])
+        size = np.concatenate([a[2] for a in args])
+        want = {}
+        for s in range(TP_SERVICES):
+            m = svc == s
+            want[f"svc-{s}"] = (int(m.sum()), float(size[m].mean()),
+                                float(size[m].max()))
+        tp_check(c.broker.execute_script(TP_QUERY, timeout_s=120.0), want, lat)
+        _zero_launches()
+        secs = []
+        for _ in range(turns):
+            t1 = time.perf_counter()
+            res = c.broker.execute_script(TP_QUERY, timeout_s=120.0)
+            secs.append(time.perf_counter() - t1)
+            tp_check(res, want, lat)
+        launches = cl_launches(c)
+        busy = (busy_share(lambda: c.broker.execute_script(TP_QUERY,
+                                                           timeout_s=120.0))
+                if profile else {})
+        if device.type == "cuda":
+            assert launches["dense_fold"]["total"] > 0, launches
+            assert launches["hist_fold"]["total"] > 0, launches
+        print(json.dumps({
+            "phase": "tracepoints", "pems": TP_PEMS, "calls_per_pem": calls,
+            "rows": calls * TP_PEMS, "dropped": 0,
+            "deploy_to_running_s": deploy_s,
+            "ns_per_call_traced": call_s / (calls * TP_PEMS) * 1e9,
+            "ns_per_call_plain": plain * 1e9,
+            "drain_s_per_2^15_rows": {
+                "median": float(np.median(drains)) * (1 << 15) / poll,
+                "max": float(np.max(drains)) * (1 << 15) / poll},
+            "query_median_s": float(np.median(secs)), "query_secs": secs,
+            "idle_share": busy.get("idle_share"),
+            "device_busy_s": busy.get("device_busy_s"),
+            "launches": launches, "checked": True}))
+
+        # A script that both mutates and queries: the same deployment (a
+        # TTL refresh) and the same answer.
+        t1 = time.perf_counter()
+        both = c.broker.execute_script(TP_DEPLOY + TP_QUERY_BODY,
+                                       timeout_s=120.0)
+        both_s = time.perf_counter() - t1
+        assert both["mutations"] == {"app_tp": "RUNNING"}, both["mutations"]
+        tp_check(both, want, lat)
+        # A redeploy under the same name (a new TTL): each call records
+        # one row, not two.
+        old = [p._tracepoints["app_tp"] for p in c.pems]
+        res = c.broker.execute_script(TP_DEPLOY.replace("'10m'", "'20m'"),
+                                      mutation_timeout_s=60.0)
+        assert res["mutations"] == {"app_tp": "RUNNING"}, res
+        tp_wait(lambda: all(p._tracepoints.get("app_tp") not in (None, o)
+                            for p, o in zip(c.pems, old)),
+                "a PEM never took the redeploy")
+        for p, app, a in zip(c.pems, apps, args):
+            tp_call(app, a, 0, 1000)
+            tp_landed(p, calls + 1000)
+            assert len(p._tracepoints) == 1
+        # An unknown symbol is refused.
+        try:
+            c.broker.execute_script(
+                TP_DEPLOY.replace("app.handle", "app.missing")
+                .replace("'app_tp'", "'bad_tp'"), mutation_timeout_s=60.0)
+        except QueryError as e:
+            assert "tracepoint deploy failed" in str(e), e
+            refused = str(e)[:200]
+        else:
+            raise AssertionError("a deploy on an unknown symbol was accepted")
+        # DeleteTracepoint detaches every PEM's connector.
+        res = c.broker.execute_script(
+            "import pxtrace\npxtrace.DeleteTracepoint('app_tp')\n")
+        tp_wait(lambda: not any("app_tp" in p._tracepoints for p in c.pems),
+                "a PEM kept app_tp after the delete")
+        assert all(app.handle.__func__ is TpApp.handle for app in apps)
+        dwarf = tp_dwarf()
+        print(json.dumps({
+            "phase": "tracepoints_mutations", "mutate_and_query_s": both_s,
+            "redeploy_rows_per_call": 1, "unknown_symbol": refused,
+            "deleted": res["mutations"], "handlers_restored": True,
+            "native_probe_plan": dwarf,
+            "secs": time.perf_counter() - t_phase}))
+    finally:
+        if reg is not None:
+            reg.close()
+        c.close()
+    return {k: v["total"] / turns for k, v in launches.items()}
+
+
+CP_TAPS = 32  # one capture tap per service
+# Half of the 2^20 HTTP/1 and 2^17 other exchanges first planned for the
+# phase: at those counts it took 106 s, and the whole script 1,062 s of
+# its 1,200 (NVIDIA H100 80GB HBM3, 700.00 W).
+CP_HTTP = 1 << 14  # HTTP/1 exchanges per tap: 2^19 in all
+CP_OTHER = 1 << 11  # exchanges of each other protocol per tap: 2^16 in all
+CP_SCRIPTS = ("px/http_stats", "px/service_stats", "http_stats_float64",
+              "px/dns_latency", "px/mysql_stats", "px/pgsql_stats",
+              "px/redis_stats", "px/kafka_stats", "px/cql_stats",
+              "px/nats_stats", "px/mux_stats", "px/amqp_stats")
+CP_TURNS = 3
+
+
+def cp_expect_http_stats(truth: list) -> dict:
+    """numpy's px/http_stats over every HTTP/1 and HTTP/2 exchange fed:
+    (service, path) -> (count, mean, max) of latency over status < 400."""
+    svc = np.concatenate([np.full(len(t["path"]), s, dtype=object)
+                          for s, t in truth])
+    path = np.concatenate([t["path"] for _s, t in truth])
+    lat = np.concatenate([t["latency_ns"] for _s, t in truth])
+    ok = np.concatenate([t["status"] for _s, t in truth]) < 400
+    out = {}
+    for s, p in set(zip(svc[ok], path[ok])):
+        v = lat[ok & (svc == s) & (path == p)]
+        out[(s, p)] = (len(v), float(v.mean()), int(v.max()))
+    return out
+
+
+def cp_check_http_stats(out, want: dict) -> None:
+    got = out.to_pydict()
+    keys = list(zip(got["service"], got["req_path"]))
+    assert sorted(keys) == sorted(want), "http_stats groups"
+    for k, n, mean, mx in zip(keys, got["n"], got["lat_mean"], got["lat_max"]):
+        wn, wmean, wmax = want[k]
+        assert (n, mx) == (wn, wmax), (k, n, mx, wn, wmax)
+        np.testing.assert_allclose(mean, wmean, rtol=LIB_FLOAT_RTOL, err_msg=str(k))
+
+
+def phase_capture(device, taps: int = CP_TAPS, http: int = CP_HTTP,
+                  other: int = CP_OTHER, turns: int = CP_TURNS,
+                  profile: bool = True) -> dict:
+    """The capture tap on one engine on ``device``: ``taps``
+    ``CaptureTapConnector``s (one per service and pod) on one
+    ``Collector``, each fed an in-memory capture
+    (``ingest/capture_gen.py``, seeded per tap) of ``http`` HTTP/1
+    exchanges and ``other`` of each other protocol (HTTP/2 with HPACK,
+    DNS, MySQL, PgSQL, Redis, Kafka, CQL, NATS, Mux, AMQP). Each
+    protocol's run is parsed by one budgeted transfer (its exchanges/s),
+    and each tap's rows pushed into the card's engine (the append's
+    seconds) and into a CPU engine. Every stitcher must end with 0
+    ``parse_errors`` and every table hold the exchanges fed. Then the
+    twelve scripts of CP_SCRIPTS run on the card (a warm-up and ``turns``
+    timed turns, the launch counters set to 0 first and read after),
+    each answer held to the CPU engine's (the library tolerances), and
+    px/http_stats also to numpy over the exchanges. Returns the
+    hist_fold launches of px/service_stats and the dense_fold launches of
+    http_stats_float64, per query."""
+    from pixie_tpu_torch import Engine
+    from pixie_tpu_torch.ingest.capture_gen import PROTOCOLS, gen_capture
+    from pixie_tpu_torch.ingest.collector import Collector
+    from pixie_tpu_torch.ingest.schemas import init_schemas
+    from pixie_tpu_torch.ingest.tap import CaptureTapConnector
+    from pixie_tpu_torch.planner import CompilerState, compile_pxl
+
+    t_phase = time.perf_counter()
+    eng, cpu = Engine(device=device), Engine(device="cpu")
+    init_schemas(eng)
+    init_schemas(cpu)
+    append_s = [0.0]
+
+    def push(name, _relation, records):
+        t0 = time.perf_counter()
+        eng.append_data(name, records)
+        append_s[0] += time.perf_counter() - t0
+        cpu.append_data(name, records)
+
+    coll = Collector()
+    coll.register_data_push_callback(push)
+    counts = {p: other for p in PROTOCOLS} | {"http": http}
+    parse_s = dict.fromkeys(PROTOCOLS, 0.0)
+    gen_s, truth = 0.0, []
+    for i in range(taps):
+        t0 = time.perf_counter()
+        cap = gen_capture(np.random.default_rng([SEED, 16, i]), counts,
+                          conns=64)
+        gen_s += time.perf_counter() - t0
+        service = f"svc-{i}"
+        tap = CaptureTapConnector(feed=cap.events, service=service,
+                                  pod=f"ns/pod-{i}")
+        coll.register_source(tap)
+        for proto in PROTOCOLS:
+            t0 = time.perf_counter()
+            tap.transfer_data(None, coll._data_tables, budget=cap.runs[proto])
+            parse_s[proto] += time.perf_counter() - t0
+        coll.flush()
+        errors = {p: getattr(tap, p).parse_errors for p in PROTOCOLS}
+        assert not any(errors.values()), (service, errors)
+        truth += [(service, cap.truth["http"]), (service, cap.truth["http2"])]
+        del cap, tap
+    assert coll.stats["pushes"] > 0 and not coll.errors, coll.errors
+    tables = {"http_events": ("http", "http2"), "dns_events": ("dns",),
+              "mysql_events": ("mysql",), "pgsql_events": ("pgsql",),
+              "redis_events": ("redis",), "kafka_events.beta": ("kafka",),
+              "cql_events": ("cql",), "nats_events.beta": ("nats",),
+              "mux_events": ("mux",), "amqp_events": ("amqp",)}
+    rows = {}
+    for t, protos in tables.items():
+        rows[t] = eng.tables[t].num_rows
+        assert rows[t] == cpu.tables[t].num_rows == taps * sum(
+            counts[p] for p in protos), (t, rows[t])
+    print(json.dumps({
+        "phase": "capture", "taps": taps,
+        "exchanges": {p: taps * n for p, n in counts.items()},
+        "exchanges_per_s": {p: taps * counts[p] / s for p, s in parse_s.items()},
+        "parse_s": sum(parse_s.values()), "gen_s": gen_s,
+        "append_s": append_s[0], "rows": rows, "parse_errors": 0}))
+    want_http = cp_expect_http_stats(truth)
+    launches, out = {}, {}
+    for name in CP_SCRIPTS:
+        pxl = query_text(name)
+        compiled = compile_pxl(pxl, CompilerState(
+            schemas={n: t.relation for n, t in eng.tables.items()},
+            registry=eng.registry, now_ns=0, max_output_rows=10_000))
+        loose, ordered = _quantile_columns(compiled.plan)
+        ref = cpu.execute_query(pxl)
+
+        def checked(out_):
+            assert sorted(out_) == sorted(ref), name
+            for k in out_:
+                check_library_output(f"capture {name}:{k}", out_[k], ref[k],
+                                     loose[k], ordered)
+            if name == "px/http_stats":
+                cp_check_http_stats(out_["output"], want_http)
+
+        checked(eng.execute_query(pxl))
+        _zero_launches()
+        secs = []
+        for _ in range(turns):
+            t0 = time.perf_counter()
+            res = eng.execute_query(pxl)
+            secs.append(time.perf_counter() - t0)
+            checked(res)
+        launches[name] = {k: v / turns for k, v in _launch_counts().items()}
+        busy = (busy_share(lambda: eng.execute_query(pxl))
+                if profile and name in ("px/service_stats", "http_stats_float64")
+                else {})
+        out[name] = float(np.median(secs))
+        print(json.dumps({
+            "phase": "capture_script", "script": name, "median_s": out[name],
+            "secs": secs, "rows_out": {k: v.length for k, v in res.items()},
+            "launches": launches[name], "idle_share": busy.get("idle_share"),
+            "checked": True}))
+    got = {"dense_fold": launches["http_stats_float64"]["dense_fold"],
+           "hist_fold": launches["px/service_stats"]["hist_fold"]}
+    if device.type == "cuda":
+        assert got["dense_fold"] > 0 and got["hist_fold"] > 0, got
+    print(json.dumps({"phase": "capture_total", "scripts": len(CP_SCRIPTS),
+                      "checked": len(CP_SCRIPTS),
+                      "script_secs": sum(out.values()),
+                      "launches": got, "secs": time.perf_counter() - t_phase}))
+    return got
+
+
 def phase_bench(device) -> dict:
     """``pixie_tpu_torch.bench.run_shape`` in this process for bench.py's
     ten shapes at 2^22 head rows (each shape's divisor applies), the A/B
@@ -5567,6 +6043,15 @@ def main() -> int:
     # The roles kept alive by the operator's Reconciler, a PEM killed.
     phase_operator(device)
     elapsed("operator")
+    # Dynamic tracing through the broker's mutation phase, then the
+    # capture tap's eleven protocols into an engine on the card.
+    tracepoints = phase_tracepoints(device)
+    capture = phase_capture(device)
+    for k in kernels:
+        k["launches_tracepoints"] = tracepoints[k["name"]]
+        k["launches_capture"] = capture[k["name"]]
+    gc.collect()
+    elapsed("tracepoints and capture")
     phase_tail(eng, replay)
     del eng, table
     gc.collect()

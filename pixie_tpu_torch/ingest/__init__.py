@@ -6,8 +6,9 @@ per-source ``DataTable`` buffers, the sampling/push ``FrequencyManager``
 poll loop, ``RegisterDataPushCallback`` semantics, the synthetic
 ``seq_gen`` source, the procfs sources, the self-sampling profiler
 (``profiler.py``), the replay generator and the canonical schemas
-(``schemas.py``). The dynamic tracepoint connectors and the protocol
-parsers are a later slice.
+(``schemas.py``), the dynamic tracepoint connector (``dynamic.py``) and
+the capture tap (``tap.py``) with its eleven protocol stitchers
+(``*_parser.py``).
 """
 
 from .core import DataTable, FrequencyManager, SourceConnector

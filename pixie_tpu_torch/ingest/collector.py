@@ -44,6 +44,14 @@ class Collector:
                     continue  # same-schema redeploy: pending rows survive
                 self._data_tables[name] = DataTable(name, rel)
 
+    def remove_source(self, connector: SourceConnector) -> None:
+        """Stop and detach a connector (dynamic tracepoint removal); its
+        table buffer stays so already-collected rows still push."""
+        connector.stop()
+        with self._lock:
+            if connector in self._connectors:
+                self._connectors.remove(connector)
+
     def register_data_push_callback(self, cb: Callable) -> None:
         """cb(table_name, relation, records_dict) — the
         RegisterDataPushCallback surface (``stirling.h:115``)."""

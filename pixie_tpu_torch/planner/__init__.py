@@ -10,11 +10,12 @@ The reference compiles PxL to a protobuf plan shipped to C++ exec nodes;
 here the compiler emits the exec-layer ``Plan`` DAG directly, and the
 fragment compiler turns maximal linear chains of it into one window fold.
 The modules are copies of the JAX package's planner with imports
-repointed (``otel_module.py`` is ``px.otel``); pxtrace raises
-``PxLError``.
+repointed (``otel_module.py`` is ``px.otel``, ``pxtrace_module.py`` is
+``pxtrace``): a script that imports ``pxtrace`` compiles to tracepoint
+mutations, which ``compile_mutations`` extracts on their own.
 """
 
-from .compiler import CompiledScript, CompilerState, compile_pxl
+from .compiler import CompiledScript, CompilerState, compile_mutations, compile_pxl
 from .objects import PxLError
 
-__all__ = ["CompiledScript", "CompilerState", "compile_pxl", "PxLError"]
+__all__ = ["CompiledScript", "CompilerState", "compile_mutations", "compile_pxl", "PxLError"]

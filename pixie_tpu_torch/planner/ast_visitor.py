@@ -145,10 +145,21 @@ _SAFE_BUILTINS = {
 class ASTVisitor:
     """Evaluates a PxL module against a PlanBuilder-backed ``px`` module."""
 
-    def __init__(self, px: PxModule):
+    def __init__(self, px: PxModule, pxtrace=None):
         self.px = px
+        # Lazily-built pxtrace module (probes DSL); importing it marks the
+        # script as a mutation candidate (probes.h MutationsIR).
+        self._pxtrace = pxtrace
         self.module_scope = Scope()
         self.funcs: dict[str, PxFunc] = {}
+
+    @property
+    def pxtrace(self):
+        if self._pxtrace is None:
+            from .pxtrace_module import TraceModule
+
+            self._pxtrace = TraceModule()
+        return self._pxtrace
 
     # -- entry point ---------------------------------------------------------
     def run(self, tree: ast.Module):
@@ -177,9 +188,7 @@ class ASTVisitor:
             if alias.name == "px":
                 scope.assign(alias.asname or "px", self.px)
             elif alias.name == "pxtrace":
-                raise PxLError(
-                    "pxtrace is not in this slice of the port", node.lineno
-                )
+                scope.assign(alias.asname or "pxtrace", self.pxtrace)
             else:
                 raise PxLError(
                     f"cannot import {alias.name!r}; only 'px' and 'pxtrace' "
@@ -326,9 +335,10 @@ class ASTVisitor:
             except PxLError as e:
                 raise PxLError(e.raw_msg, node.lineno)
         from .otel_module import OTelModule, _MetricNamespace, _TraceNamespace
+        from .pxtrace_module import TraceModule
 
         if isinstance(
-            obj, (OTelModule, _MetricNamespace, _TraceNamespace)
+            obj, (OTelModule, _MetricNamespace, _TraceNamespace, TraceModule)
         ) and not attr.startswith("_"):
             try:
                 return getattr(obj, attr)

@@ -3,9 +3,11 @@
 Reference parity: ``src/carnot/planner/compiler/compiler.h:39``
 (Compiler::CompileToIR: parse -> ASTVisitor -> IR -> Analyze -> Optimize)
 plus the LogicalPlanner facade (``planner/logical_planner.h:40``).
-A copy of the JAX package's compiler without its pxtrace mutation pass:
-every compile runs the plan verifier and the resource-bound pass
-(``analysis/``) after the rewrite rules.
+A copy of the JAX package's compiler: every compile runs the plan
+verifier and the resource-bound pass (``analysis/``) after the rewrite
+rules, and a script that imports ``pxtrace`` yields tracepoint mutations
+(``compile_mutations``, ``CompiledScript.mutations``) that the broker
+deploys before its query phase.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ class CompiledScript:
     plan: Plan
     outputs: list  # sink names in display order
     funcs: dict = field(default_factory=dict)  # module-level PxL functions
+    # Tracepoint deployments/deletes from pxtrace (mutation scripts;
+    # planner CompileMutations analog). A script may carry both mutations
+    # and a query plan — the broker deploys, waits for readiness, then
+    # runs the plan (mutation_executor.go:84).
+    mutations: list = field(default_factory=list)
     # Export sinks (px.export) have no named output; callers must not
     # treat outputs == [] as "nothing to execute" when this is non-zero.
     n_exports: int = 0
@@ -62,6 +69,32 @@ def parse_pxl(query: str) -> ast.Module:
         return ast.parse(query)
     except SyntaxError as e:
         raise PxLError(f"syntax error: {e.msg}", e.lineno)
+
+
+def compile_mutations(query: str, state: CompilerState) -> list:
+    """Extract pxtrace mutations without requiring the query phase to
+    compile (planner CompileMutations / cgo PlannerCompileMutations
+    analog): a mutation script may query the very table its tracepoint
+    creates, which only exists after deployment — so extraction is
+    best-effort past the mutation statements."""
+    tree = parse_pxl(query)
+    builder = PlanBuilder(
+        plan=Plan(),
+        schemas=dict(state.schemas),
+        registry=state.registry,
+        max_groups=state.max_groups,
+    )
+    px = PxModule(builder, state.now_ns)
+    visitor = ASTVisitor(px)
+    # Statement-at-a-time: query-phase statements may fail (their tables
+    # deploy only after the mutations run) without hiding mutation
+    # statements that follow them.
+    for stmt in tree.body:
+        try:
+            visitor.exec_stmt(stmt, visitor.module_scope)
+        except Exception:
+            continue
+    return list(visitor._pxtrace.mutations) if visitor._pxtrace else []
 
 
 def compile_pxl(query: str, state: CompilerState) -> CompiledScript:
@@ -91,8 +124,9 @@ def compile_pxl(query: str, state: CompilerState) -> CompiledScript:
     px = PxModule(builder, state.now_ns)
     visitor = ASTVisitor(px)
     visitor.run(tree)
+    mutations = list(visitor._pxtrace.mutations) if visitor._pxtrace else []
     if (not builder.sinks and not builder.n_exports
-            and not builder.n_table_sinks):
+            and not builder.n_table_sinks and not mutations):
         raise PxLError(
             "script produced no output tables; call px.display(df), "
             "px.to_table(df, name), or "
@@ -131,5 +165,5 @@ def compile_pxl(query: str, state: CompilerState) -> CompiledScript:
     )
     return CompiledScript(
         plan=builder.plan, outputs=list(builder.sinks), funcs=visitor.funcs,
-        n_exports=builder.n_exports,
+        mutations=mutations, n_exports=builder.n_exports,
     )

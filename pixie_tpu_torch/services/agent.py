@@ -29,8 +29,12 @@ of distributed traces go to the broker's trace view on
 ``telemetry.spans``. Each heartbeat folds ``__tables__`` and ``__bus__``
 and carries the agent's profile summary (``ingest/profiler.py``).
 
-Not in this slice: the dynamic tracepoint surface (a tracepoint message
-is answered with a FAILED status).
+The dynamic tracepoint surface (``pem/tracepoint_manager.h:48``): a PEM
+resolves a ``TracepointDeployment`` against its ``trace_targets``,
+attaches a ``DynamicTraceConnector`` (``ingest/dynamic.py``) to its
+collector, creates the tracepoint's table, publishes its schemas and
+answers RUNNING (FAILED, with the error, when the symbol is unknown);
+``poll_tracepoints`` drains the connectors into the engine at once.
 """
 
 from __future__ import annotations
@@ -48,9 +52,6 @@ from .msgbus import MessageBus
 from .tracker import TOPIC_HEARTBEAT, TOPIC_REGISTER
 
 DEFAULT_HEARTBEAT_INTERVAL_S = 5.0
-#: Where tracepoint deployment states are published (the JAX package's
-#: ``services/tracepoints.py`` topic).
-TOPIC_TRACEPOINT_STATUS = "tracepoint.status"
 
 
 class Agent:
@@ -77,13 +78,18 @@ class Agent:
         self.engine.registry = bind_service_registry(
             self.engine.registry, bus, f"agent-{agent_id}"
         )
-        # The ingest loop's sources push into this agent's engine.
-        from ..ingest.collector import Collector
-
-        self.collector = Collector()
-        self.collector.wire_to(self.engine)
         self.heartbeat_interval_s = heartbeat_interval_s
         self.asid = None
+        # Dynamic tracing surface (pem/tracepoint_manager.h:48 analog):
+        # traceable in-process symbols + deployed tracepoint connectors.
+        # The ingest loop's sources push into this agent's engine.
+        from ..ingest.collector import Collector
+        from ..ingest.dynamic import TraceTargetRegistry
+
+        self.trace_targets = TraceTargetRegistry()
+        self.collector = Collector()
+        self.collector.wire_to(self.engine)
+        self._tracepoints: dict = {}  # name -> DynamicTraceConnector
         self._registered = threading.Event()
         self._stop = threading.Event()
         self._subs = []
@@ -306,23 +312,71 @@ class Agent:
     def append_data(self, table: str, data, time_cols=("time_",)):
         return self.engine.append_data(table, data, time_cols=time_cols)
 
-    # -- dynamic tracepoints ---------------------------------------------------
+    # -- dynamic tracepoints (TracepointManager analog) ----------------------
     def _on_tracepoint(self, msg):
-        """Tracepoints (``pxtrace``) are not in this slice of the port: a
-        deployment is answered with a FAILED status, a removal with
-        nothing."""
+        from ..services.tracepoints import FAILED, RUNNING, TOPIC_STATUS
+
         if msg.get("op") == "remove":
+            conn = self._tracepoints.pop(msg["name"], None)
+            if conn is not None:
+                self.collector.remove_source(conn)
             return
-        dep = msg.get("deployment")
+        dep = msg["deployment"]
+        try:
+            from ..ingest.dynamic import compile_program
+
+            old = self._tracepoints.pop(dep.name, None)
+            if old is not None:
+                # Re-deploy under the same name: detach the old connector
+                # first (otherwise the target ends up double-wrapped and
+                # every call records duplicate rows).
+                self.collector.remove_source(old)
+            conn = compile_program(
+                dep, self.trace_targets, asid=self.asid or 0
+            )
+            existing = self.engine.table_store.relation(dep.table_name)
+            new_rel = dep.relation()
+            if existing is None:
+                self.engine.create_table(dep.table_name, new_rel)
+            elif list(existing.items()) != list(new_rel.items()):
+                # Schema changed: replace the table (old-relation rows
+                # cannot coexist with the new output spec).
+                self.engine.create_table(dep.table_name, new_rel)
+            # else: TTL refresh / same-schema redeploy keeps collected rows.
+            self.collector.register_source(conn)
+            self._tracepoints[dep.name] = conn
+        except Exception as e:
+            self.bus.publish(
+                TOPIC_STATUS,
+                {
+                    "name": dep.name,
+                    "agent": self.agent_id,
+                    "state": FAILED,
+                    "error": repr(e)[:300],
+                },
+            )
+            return
+        # Publish the new schema immediately (the broker's mutation wait
+        # needs it before the next heartbeat would fire).
         self.bus.publish(
-            TOPIC_TRACEPOINT_STATUS,
-            {
-                "name": getattr(dep, "name", ""),
-                "agent": self.agent_id,
-                "state": "FAILED",
-                "error": "tracepoints are not in this slice of the port",
-            },
+            TOPIC_HEARTBEAT,
+            {"agent_id": self.agent_id, "schemas": self._schemas()},
         )
+        self.bus.publish(
+            TOPIC_STATUS,
+            {"name": dep.name, "agent": self.agent_id, "state": RUNNING},
+        )
+
+    def poll_tracepoints(self) -> None:
+        """Drain deployed-tracepoint buffers into the table store NOW —
+        bypassing the collector thread's sampling/push frequencies (which
+        drain on their own cadence) for tests and low-latency reads."""
+        for conn in list(self._tracepoints.values()):
+            try:
+                conn.transfer_data(self.collector, self.collector._data_tables)
+            except Exception as e:
+                self.collector.errors.append((conn.name, repr(e)))
+        self.collector.flush()
 
     # -- query execution -----------------------------------------------------
     def _bounded_put(self, d: dict, key, value=None) -> None:

@@ -13,9 +13,10 @@ dispatch with retries and acks, replanning around expired agents, the
 cluster-level result cache, live queries, the bus API (``serve``), the
 cluster-stitched trace view (``trace_view``, ``/debug/tracez``), the
 observed-cost admission floor (``observed_costs``) and the cluster
-profile (``profile_rows``, ``broker.profile``). Not in this slice:
-pxtrace mutations (the compiler refuses a script that imports
-``pxtrace``). The broker-HA hooks (``broker_id``, ``epoch_fn``,
+profile (``profile_rows``, ``broker.profile``) and the mutation phase:
+a script that imports ``pxtrace`` has its tracepoints deployed through
+``tracepoints`` (a ``TracepointRegistry``) and waits for them to run
+before its query phase compiles. The broker-HA hooks (``broker_id``, ``epoch_fn``,
 ``state_log``, ``stop_serving``, ``QueryResultForwarder.abandon``) are
 wired by ``services/broker_ha.py``; a broker that no replica wires
 dispatches without an epoch, as a single-broker deployment does.
@@ -31,7 +32,7 @@ import uuid
 
 from ..exec import threadmap
 from ..exec.engine import QueryError
-from ..planner import CompilerState, compile_pxl
+from ..planner import CompilerState, compile_mutations, compile_pxl
 from ..planner.distributed import DistributedPlanner
 from ..planner.distributed.coordinator import PlanningError
 from ..udf.registry import Registry, default_registry
@@ -885,6 +886,9 @@ class QueryBroker:
         from ..exec.result_cache import ResultCache
 
         self.result_cache = ResultCache()
+        # Dynamic-tracing support (the MutationExecutor dependency,
+        # mutation_executor.go:84); wire a TracepointRegistry to enable.
+        self.tracepoints = None
         # Every live stream's handle (qid -> StreamHandle): the stream
         # watchdog. A stream whose MERGE agent expires can never emit
         # again (data-agent loss re-merges from survivors instead), so
@@ -1322,6 +1326,7 @@ class QueryBroker:
         timeout_s: float = 30.0,
         now_ns: int = 0,
         max_output_rows: int = 10_000,
+        mutation_timeout_s: float = 10.0,
         require_complete: bool | None = None,
         tenant: str | None = None,
         priority: int = 0,
@@ -1331,6 +1336,11 @@ class QueryBroker:
         """The VizierService.ExecuteScript flow, end to end: compile
         against the tracker's schemas, plan onto the live agents,
         dispatch the fragments and wait for the merged answer.
+
+        Mutation phase first (MutationExecutor.Execute): pxtrace
+        tracepoints deploy and the broker waits until their tables are
+        schema-ready before compiling the query phase — so a script may
+        query the very table its tracepoint creates.
 
         ``require_complete`` (default: the flag): True fails the query
         as soon as a data agent is lost; False completes from the
@@ -1368,7 +1378,7 @@ class QueryBroker:
         try:
             result = self._execute_script_inner(
                 query, timeout_s, now_ns, max_output_rows,
-                require_complete, trace,
+                mutation_timeout_s, require_complete, trace,
                 tenant, int(priority), deadline_mono, deadline_unix,
                 reply_to,
             )
@@ -1392,6 +1402,7 @@ class QueryBroker:
         timeout_s: float,
         now_ns: int,
         max_output_rows: int,
+        mutation_timeout_s: float,
         require_complete: bool,
         trace,
         tenant: str,
@@ -1443,9 +1454,55 @@ class QueryBroker:
             # predicted query cost — the admission-control signal.
             table_stats=self.tracker.table_stats(),
         )
+        mutation_states = None
+        # Cheap gate: the mutation pass re-executes the script, so skip it
+        # entirely unless the source can contain pxtrace at all.
+        mutations = (
+            compile_mutations(query, compiler_state)
+            if "pxtrace" in query
+            else []
+        )
+        if mutations:
+            if self.tracepoints is None:
+                raise QueryError(
+                    "script contains pxtrace mutations but this broker has "
+                    "no TracepointRegistry wired"
+                )
+            self.tracepoints.apply(mutations)
+            from ..trace.spec import TracepointDeployment
+
+            names = [
+                m.name for m in mutations
+                if isinstance(m, TracepointDeployment)
+            ]
+            mutation_states = self.tracepoints.wait_ready(
+                names, timeout_s=mutation_timeout_s
+            )
+            failed = {n: s for n, s in mutation_states.items() if s != "RUNNING"}
+            if failed:
+                infos = {
+                    n: (self.tracepoints.info(n) or {}).get("error", "")
+                    for n in failed
+                }
+                raise QueryError(f"tracepoint deploy failed: {infos}")
+            # Re-read schemas: the tracepoint tables now exist.
+            compiler_state = CompilerState(
+                schemas=self.tracker.schemas(),
+                registry=self.registry,
+                now_ns=now_ns,
+                max_output_rows=max_output_rows,
+                table_stats=self.tracker.table_stats(),
+            )
         state = self.tracker.distributed_state()  # fresh per query
         with trace.span("compile"):
             compiled = compile_pxl(query, compiler_state)
+        if mutations and not compiled.outputs and not compiled.n_exports:
+            return {
+                "mutations": mutation_states,
+                "tables": {},
+                "agent_stats": {},
+                "qid": None,
+            }
         try:
             dplan = self.planner.plan(
                 compiled.plan, state,
@@ -1642,6 +1699,8 @@ class QueryBroker:
             trace.cache = cache_status
         if cache_status:
             result["cache"] = cache_status
+        if mutation_states is not None:
+            result["mutations"] = mutation_states
         return result
 
     def execute_script_streaming(
@@ -1901,6 +1960,7 @@ class QueryBroker:
                     "missing_agents": res.get("missing_agents", []),
                     "missing_reasons": res.get("missing_reasons", {}),
                     "interrupted": res.get("interrupted"),
+                    "mutations": res.get("mutations"),
                     "predicted_cost": res.get("predicted_cost"),
                     "tenant": res.get("tenant"),
                     "freshness_lag_ms": res.get("freshness_lag_ms"),

@@ -472,6 +472,11 @@ class Table:
         # The cold tier (tier.py), set by _init_backend when the
         # cold_tier_mb flag is on and the table is byte-bounded.
         self._tier = None
+        # Appends to one table serialize: an agent's collector thread and
+        # a flush from another thread (``poll_tracepoints``, a test) can
+        # push into the same table, and the first append of a table
+        # created without a relation builds its ring.
+        self._append_lock = threading.Lock()
         if len(self.relation):
             self._init_backend()
 
@@ -515,6 +520,10 @@ class Table:
     # -- write path ----------------------------------------------------------
     def append(self, data, time_cols: Iterable[str] = (TIME_COLUMN,)) -> HostBatch:
         """Push path (Stirling's TransferRecordBatch analog, table.h:268)."""
+        with self._append_lock:
+            return self._append(data, time_cols)
+
+    def _append(self, data, time_cols: Iterable[str]) -> HostBatch:
         hb = (
             data
             if isinstance(data, HostBatch)

@@ -88,9 +88,13 @@ class HostBatch:
                 out_dicts[name] = d
                 cols[name] = (ids,)
             elif dt == DataType.UINT128:
-                if arr.ndim != 2 or arr.shape[1] != 2:
-                    raise ValueError(f"UINT128 column {name!r} wants (n, 2) uint64")
-                cols[name] = (arr[:, 0].astype(np.uint64), arr[:, 1].astype(np.uint64))
+                if arr.ndim == 2 and arr.shape[1] == 2:  # (n, 2) [hi, lo]
+                    cols[name] = (arr[:, 0].astype(np.uint64),
+                                  arr[:, 1].astype(np.uint64))
+                else:  # python ints (the capture tap's upid column)
+                    hi = np.fromiter(((int(v) >> 64) & (2**64 - 1) for v in values), np.uint64, length)
+                    lo = np.fromiter((int(v) & (2**64 - 1) for v in values), np.uint64, length)
+                    cols[name] = (hi, lo)
             else:
                 (hdt,) = host_dtypes(dt)
                 cols[name] = (arr.astype(hdt),)

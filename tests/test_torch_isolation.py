@@ -163,8 +163,11 @@ try:
         pem._register()
     agents.append(KelvinAgent(bus, "kelvin-0", heartbeat_interval_s=0.05,
                               engine=Engine(device="cpu")).start())
-    deadline = time.monotonic() + 5
-    while "t" not in tracker.schemas() and time.monotonic() < deadline:
+    # Every PEM's table, not the schemas' union: a PEM whose
+    # registration has not landed is left out of the plan.
+    deadline = time.monotonic() + 30
+    while (sum(p.has_table("t") for p in tracker.distributed_state().pems)
+           < 2 and time.monotonic() < deadline):
         time.sleep(0.01)
     broker = QueryBroker(bus, tracker)
     res = broker.execute_script(
@@ -366,6 +369,99 @@ rec = Reconciler({"s": RoleSpec("s", command=(sys.executable, "-c", "0"))})
 rec.reconcile()
 rec.stop()
 assert run_lint([pixie_tpu_torch.exec.otel.__file__]).ok
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_tracepoints_and_capture_tap_load_neither_jax_nor_the_jax_package():
+    """A pxtrace deploy-and-query through a CPU cluster's broker, and a
+    capture of all eleven protocols through the tap into a CPU engine
+    with a stats script over it: none of it loads JAX or the JAX
+    package."""
+    code = """
+import sys, time
+import numpy as np
+from pixie_tpu_torch import Engine
+from pixie_tpu_torch.ingest.capture_gen import PROTOCOLS, gen_capture
+from pixie_tpu_torch.ingest.collector import Collector
+from pixie_tpu_torch.ingest.schemas import init_schemas
+from pixie_tpu_torch.ingest.tap import CaptureTapConnector
+from pixie_tpu_torch.services import (
+    AgentTracker, KelvinAgent, MessageBus, PEMAgent, QueryBroker)
+from pixie_tpu_torch.services.tracepoints import TracepointRegistry
+from pixie_tpu_torch.utils.dwarf import DwarfReader
+from pixie_tpu_torch.utils.elf import ELFReader
+from pixie_tpu_torch.utils import BloomFilter
+
+class App:
+    def handle(self, service, status, size_kb):
+        return status
+
+bus = MessageBus()
+tracker = AgentTracker(bus, expiry_s=60.0, check_interval_s=60.0)
+app = App()
+pem = PEMAgent(bus, "pem-0", heartbeat_interval_s=0.05,
+               engine=Engine(window_rows=1024, device="cpu")).start()
+kelvin = KelvinAgent(bus, "kelvin-0", heartbeat_interval_s=0.05,
+                     engine=Engine(device="cpu")).start()
+broker = QueryBroker(bus, tracker)
+broker.tracepoints = TracepointRegistry(bus, tracker)
+pem.trace_targets.register("app.handle", app, "handle")
+try:
+    res = broker.execute_script(
+        "import pxtrace\\n"
+        "@pxtrace.probe('app.handle')\\n"
+        "def probe_fn():\\n"
+        "    return [{'latency_ns': pxtrace.FunctionLatency(),\\n"
+        "             'service': pxtrace.ArgExpr('service', type='string')}]\\n"
+        "pxtrace.UpsertTracepoint('tp', 'app_calls', probe_fn, ttl='5m')\\n")
+    assert res["mutations"] == {"tp": "RUNNING"}, res
+    for i in range(30):
+        app.handle(f"svc-{i % 3}", 200, 1.5)
+    pem.poll_tracepoints()
+    out = broker.execute_script(
+        "import px\\ndf = px.DataFrame(table='app_calls')\\n"
+        "px.display(df.groupby('service').agg(n=('latency_ns', px.count)))"
+    )["tables"]["output"].to_pydict()
+    assert sorted(out["n"].tolist()) == [10, 10, 10], out
+finally:
+    broker.tracepoints.close()
+    broker.close()
+    pem.stop()
+    kelvin.stop()
+    tracker.close()
+    bus.close()
+cap = gen_capture(5, {p: 64 for p in PROTOCOLS})
+eng = Engine(window_rows=1024, device="cpu")
+init_schemas(eng)
+coll = Collector()
+coll.wire_to(eng)
+tap = CaptureTapConnector(feed=cap.events, service="svc", pod="ns/p")
+coll.register_source(tap)
+tap.transfer_data(coll, coll._data_tables, budget=len(cap.events))
+coll.flush()
+for p in PROTOCOLS:
+    assert getattr(tap, p).parse_errors == 0, p
+out = eng.execute_query("import px\\n"
+    "df = px.DataFrame(table='redis_events')\\n"
+    "px.display(df.groupby('req_cmd').agg(n=('latency_ns', px.count)))"
+)["output"].to_pydict()
+assert int(out["n"].sum()) == 64, out
+for mod in ("ingest.dynamic", "ingest.tap", "planner.pxtrace_module",
+            "ingest.http2_parser", "ingest.amqp_parser"):
+    assert "pixie_tpu_torch." + mod in sys.modules, mod
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
 assert not bad, bad

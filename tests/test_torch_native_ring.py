@@ -296,3 +296,35 @@ def test_cpu_engine_host_hash_join_matches_jax():
     assert len(got["k"]) == len(want["k"]) > 6000
     for c in ("k", "v", "w"):
         assert np.array_equal(got[c], want[c]), c
+
+
+@pytest.mark.parametrize("ring", ["native", "numpy"])
+def test_concurrent_appends_to_a_new_table(ring, monkeypatch):
+    """Threads pushing into one table created without a relation (a
+    collector's thread and a flush from another thread) all land: the
+    first append builds the ring while the others wait for it."""
+    import threading
+
+    if ring == "numpy":
+        monkeypatch.setattr(table_mod, "load_native", lambda name: None)
+    for trial in range(20):
+        t = Table(f"t{trial}")
+        start = threading.Barrier(4)
+        errors = []
+
+        def push(i):
+            start.wait()
+            try:
+                t.append({"time_": np.arange(i * 8, i * 8 + 8, dtype=np.int64),
+                          "s": [f"v{i}"] * 8})
+            except Exception as e:  # an append that lost the race
+                errors.append(e)
+
+        threads = [threading.Thread(target=push, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        assert errors == []
+        assert t.num_rows == 32
+        assert sorted(set(t.dicts["s"].strings)) == ["v0", "v1", "v2", "v3"]

@@ -187,17 +187,45 @@ def test_script_copies_match_jax_package(name):
     assert load_script(name).pxl == jax_load_script(name).pxl
 
 
+def _mutation_fields(m) -> tuple:
+    """A pxtrace mutation as plain values, comparable across packages."""
+    if not hasattr(m, "probe"):  # TracepointDelete
+        return ("delete", m.name)
+    return ("deploy", m.name, m.table_name, m.probe.target,
+            tuple((col, te.kind, te.expr, te.dtype.name)
+                  for col, te in m.probe.outputs), m.ttl_s)
+
+
+PXTRACE_SCRIPT = """import pxtrace
+
+@pxtrace.probe('app.handle')
+def probe_fn():
+    return [{'latency_ns': pxtrace.FunctionLatency(),
+             'who': pxtrace.ArgExpr('who', type='string')}]
+
+pxtrace.UpsertTracepoint('tp', 'calls', probe_fn, ttl='5m')
+"""
+
+
 @pytest.mark.parametrize("script", [
-    "import pxtrace\n",
+    pytest.param(PXTRACE_SCRIPT, id="import pxtrace\n"),
     "import px\ndf = px.DataFrame(table='http_events')\n"
     "px.export(df, px.otel.Data())\n",
     "import px\ndf = px.DataFrame(table='http_events')\n"
     "df.svc = df.ctx['service']\npx.display(df)\n",
 ])
 def test_features_outside_the_slice_raise(script):
-    """pxtrace raises; ``df.ctx`` without a metadata state raises as in
-    the JAX package; ``px.export`` is in the port now, and both packages
-    compile it to the same plan."""
+    """``df.ctx`` without a metadata state raises as in the JAX package;
+    ``px.export`` and ``pxtrace`` are in the port now: both packages
+    compile the export to the same plan and the pxtrace script to equal
+    mutations."""
+    if "pxtrace" in script:
+        for got, ref in _compile_both(script, {}):
+            assert got.outputs == ref.outputs == []
+            assert len(got.mutations) == 1
+            assert ([_mutation_fields(m) for m in got.mutations]
+                    == [_mutation_fields(m) for m in ref.mutations])
+        return
     if "px.export" in script:
         tables = {"http_events": JaxRelation(
             [(n, JaxDataType[t]) for n, t in HTTP_EVENTS])}
@@ -215,7 +243,5 @@ def test_features_outside_the_slice_raise(script):
     )
     # ``df.ctx`` is in the port now; without a metadata state attached it
     # raises as the JAX package does.
-    match = ("no metadata state attached" if "ctx[" in script
-             else "not in this slice")
-    with pytest.raises(PxLError, match=match):
+    with pytest.raises(PxLError, match="no metadata state attached"):
         compile_pxl(script, state)

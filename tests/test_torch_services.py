@@ -393,14 +393,29 @@ def test_served_bus_api_matches_execute_script():
 
 
 def test_tracepoint_answered_not_in_this_slice():
-    with _cluster("port", n_pems=1) as c:
-        got = []
-        c.bus.subscribe("tracepoint.status", got.append)
-        c.bus.publish("agent.pem-0.tracepoint",
-                      {"deployment": types.SimpleNamespace(name="tp")})
-        assert _wait_for(lambda: got)
-        assert got[0]["state"] == "FAILED" and got[0]["name"] == "tp"
-        assert "not in this slice" in got[0]["error"]
+    """A deployment on a symbol no PEM registered is answered FAILED by
+    both packages' agents, with the same error text."""
+    import pixie_tpu.trace.spec as jax_spec
+    import pixie_tpu_torch.trace.spec as port_spec
+
+    answers = {}
+    for name, spec in (("jax", jax_spec), ("port", port_spec)):
+        with _cluster(name, n_pems=1) as c:
+            got = []
+            c.bus.subscribe("tracepoint.status", got.append)
+            dep = spec.TracepointDeployment(
+                name="tp", table_name="calls", probe=spec.ProbeDef(
+                    target="no.such.symbol",
+                    outputs=(("x", spec.TraceExpr("arg", "x")),)))
+            c.bus.publish("agent.pem-0.tracepoint", {"deployment": dep})
+            assert _wait_for(lambda: got)
+            answers[name] = got[0]
+            assert "calls" not in c.tracker.schemas()
+    assert answers["port"] == answers["jax"]
+    assert answers["port"]["state"] == "FAILED"
+    assert answers["port"]["name"] == "tp"
+    assert "no traceable target registered for symbol 'no.such.symbol'" in (
+        answers["port"]["error"])
 
 
 def test_cancel_query_of_an_unknown_qid():
