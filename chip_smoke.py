@@ -58,7 +58,16 @@ without them. In order it:
    one PEM dies and is expired: px/service_stats replans onto 3 PEMs and
    equals numpy over their quarters; a live px/service_stats over the 3
    (``execute_script_streaming``), one more window appended on each,
-   ends at the one-shot answer. Then the same cluster across processes
+   ends at the one-shot answer. Then ``mesh``: a ``DistributedEngine``
+   over 4 virtual PEMs on the card (``agent_mesh(4, devices=[card] *
+   4)``) loads the same replay in 2^21-row resident windows, and
+   px/http_stats, http_stats_float64 and px/service_stats (a warm-up,
+   three timed turns, one under torch.profiler) each equal numpy and the
+   single engine, every window resident and each kernel launched once
+   per shard per window (dense_fold 32, hist_fold 64 per query); then a
+   2 x 2 (kelvin x agents) mesh on px/service_stats, and a degraded
+   mesh of 3 live PEMs of 4 on http_stats_float64 (8 windows staged, 24
+   dense_fold launches, equal to numpy). Then the same cluster across processes
    (``processes``): the broker (bus, BusServer, tracker, QueryBroker) in
    this process, 4 PEM workers (this script run with ``--pem-worker``,
    each regenerating the replay from SEED and appending its own quarter
@@ -4146,6 +4155,123 @@ def pr_ctl(bus, pems, op: str) -> dict:
             for p in pems}
 
 
+MESH_PEMS = 4
+MESH_TURNS = 3
+
+
+def mesh_turns(dist, name: str, expect: Expect, ref, turns: int) -> dict:
+    """A warm-up, then ``turns`` timed queries of ``name`` on the mesh
+    engine with the launch counters set to 0 before them, each answer
+    held to numpy and to the single engine's ``ref`` (cl_reference's
+    triple). Returns the turns' seconds, counters and launches."""
+    dist.execute_query(query_text(name))  # warm-up
+    _zero_launches()
+    secs = []
+    for _ in range(turns):
+        t0 = time.perf_counter()
+        out = dist.execute_query(query_text(name))["output"]
+        secs.append(time.perf_counter() - t0)
+        expect.check(name, out)
+        check_library_output(f"mesh {name}", out, ref[0]["output"],
+                             ref[1]["output"], ref[2])
+    st = dist.last_stats
+    return {"script": name, "checked": True, "turns": secs,
+            "secs": float(np.median(secs)), "windows": st.windows,
+            "resident_windows": st.resident_windows,
+            "staged_windows": st.staged_windows,
+            "launches": _launch_counts(), "per_query": {
+                k: v // turns for k, v in _launch_counts().items()}}
+
+
+def phase_mesh(eng, replay, expect: Expect, device, single: dict,
+               window: int = WINDOW, turns: int = MESH_TURNS,
+               profile: bool = True) -> dict:
+    """The mesh executor (``pixie_tpu_torch/parallel/``): a
+    ``DistributedEngine`` over 4 virtual PEMs on ``device``
+    (``agent_mesh(4, devices=[device] * 4)``) loads the replay in
+    ``window``-row resident windows; px/http_stats, http_stats_float64
+    and px/service_stats each run a warm-up and ``turns`` timed turns,
+    every answer held to numpy and to the single engine ``eng``'s (keys,
+    strings and integers exact, FLOAT64 rtol 1e-5, quantiles rtol 0.05),
+    every window resident, each kernel launched 4 times as often per
+    query as on ``eng`` (``single``: its launches per query), and one
+    more turn under torch.profiler (the idle share). Then a 2 x 2
+    (kelvin x agents) mesh on px/service_stats, and a degraded mesh: a
+    DistributedState with 3 live PEMs of 4, on http_stats_float64 (every
+    window staged, 3 dense_fold launches per window). Both read the
+    first mesh engine's tables. Returns the launches per query."""
+    from pixie_tpu_torch.parallel import DistributedEngine, agent_mesh
+    from pixie_tpu_torch.planner.distributed import AgentInfo, DistributedState
+
+    on_card = device.type == "cuda"
+    n_windows = -(-len(replay[0]) // window)
+    slots = [device] * MESH_PEMS
+    dist = DistributedEngine(window_rows=window,
+                             mesh=agent_mesh(MESH_PEMS, devices=slots))
+    dist.create_table("http_events")
+    append_s = append_replay(dist, replay, window)
+    resident = dist.tables["http_events"].resident_bytes
+    print(json.dumps({"phase": "mesh_append", "pems": MESH_PEMS,
+                      "rows": len(replay[0]), "secs": append_s,
+                      "resident_bytes": resident}))
+    if on_card:
+        assert resident == len(replay[0]) * ROW_BYTES, resident
+    out = {"dense_fold": {}, "hist_fold": {}}
+    refs = {}
+    for name in AGG_SCRIPTS:
+        t0 = time.perf_counter()
+        refs[name] = cl_reference(eng, name)
+        single_s = time.perf_counter() - t0
+        rec = mesh_turns(dist, name, expect, refs[name], turns)
+        rec = {"phase": "mesh", "mesh": "1x4", **rec,
+               "single_secs": single_s}
+        assert (rec["resident_windows"], rec["staged_windows"]) == (
+            n_windows, 0), rec
+        if on_card:
+            kernel = CL_KERNEL_OF.get(name)
+            if kernel is not None:
+                n = rec["per_query"][kernel]
+                assert n == MESH_PEMS * single[kernel], (name, n, single)
+                out[kernel][name] = n
+            if profile:
+                rec.update(device_busy(dist, name))
+        print(json.dumps(rec))
+    two_d = DistributedEngine(window_rows=window, mesh=agent_mesh(
+        MESH_PEMS // 2, n_kelvin=2, devices=slots))
+    two_d.table_store = dist.table_store
+    name = "px/service_stats"
+    rec = mesh_turns(two_d, name, expect, refs[name], turns)
+    rec = {"phase": "mesh", "mesh": "2x2", **rec}
+    assert rec["resident_windows"] == n_windows, rec
+    if on_card:
+        n = rec["per_query"]["hist_fold"]
+        assert n == MESH_PEMS * single["hist_fold"], (n, single)
+        out["hist_fold"]["2x2 " + name] = n
+    print(json.dumps(rec))
+    state = DistributedState(agents=[
+        AgentInfo(agent_id=f"pem-{i}", processes_data=True,
+                  tables=frozenset({"http_events"}))
+        for i in range(MESH_PEMS - 1)
+    ] + [AgentInfo(agent_id="kelvin-0", processes_data=False,
+                   accepts_remote_sources=True)])
+    degraded = DistributedEngine(window_rows=window, mesh=dist.mesh,
+                                 distributed_state=state)
+    degraded.table_store = dist.table_store
+    name = "http_stats_float64"
+    rec = mesh_turns(degraded, name, expect, refs[name], turns)
+    rec = {"phase": "mesh", "mesh": "degraded 1x3", **rec,
+           "n_data_shards": degraded.last_distributed_plan.n_data_shards}
+    assert rec["n_data_shards"] == MESH_PEMS - 1, rec
+    assert (rec["resident_windows"], rec["staged_windows"]) == (
+        0, n_windows), rec
+    if on_card:
+        n = rec["per_query"]["dense_fold"]
+        assert n == (MESH_PEMS - 1) * n_windows, n
+        out["dense_fold"]["degraded " + name] = n
+    print(json.dumps(rec))
+    return out
+
+
 def phase_processes(eng, replay, device, in_process: dict,
                     window: int = WINDOW, quarter: int = CL_QUARTER,
                     turns: int = CL_TURNS) -> dict:
@@ -6026,6 +6152,13 @@ def main() -> int:
         k["launches_cluster"] = cluster[k["name"]]
     gc.collect()
     elapsed("cluster")
+    # The mesh executor: 4 virtual PEMs on the card, held to ``eng``.
+    mesh = phase_mesh(eng, replay, expect, device, launches)
+    for k in kernels:
+        k["launches_mesh"] = mesh[k["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    elapsed("mesh")
     # The same cluster with its PEMs and Kelvin in processes of their
     # own, then the roles started as users start them.
     processes = phase_processes(eng, replay, device, cluster["turns"])

@@ -857,9 +857,7 @@ class Engine:
                     raise QueryError(f"no input for bridge {op.bridge_id}")
                 results[nid] = bind_bridge(bridge_inputs[op.bridge_id])
             else:
-                raise NotImplementedError(
-                    f"{type(op).__name__} is not in this slice of the port"
-                )
+                raise QueryError(f"unsupported operator {op}")
             # Fan-out of a stream: materialize once and share the batch,
             # EXCEPT pure table scans: their windows are resident, so
             # each consumer re-reading them is free, while a materialize
@@ -1053,20 +1051,34 @@ class Engine:
     def _fold_agg_state(self, stream: _Stream, frag, stats: QueryStats, cancel):
         """Stream the source through the fragment's window fold, returning
         the accumulated (unfinalized) group state. No per-window fence."""
-        state = frag.init_state()
+        init_state, agg_step, _ = self._compile_steps(frag)
+        state = init_state()
         pipe = self._window_pipeline(stream, stats, cancel)
         try:
             for cols, valid, src in pipe:
                 src.handoff()
                 cols = self._with_side(cols, stream)
                 with _timed(stats, "compute"):
-                    state = frag.merge_states(state, frag.window_state(cols, valid))
+                    state = agg_step(state, cols, valid)
                     _block_if(stats, self.device)
                 stats.windows += 1
         finally:
             pipe.close()
             self._note_pipeline(pipe, stats)
         return state
+
+    def _compile_steps(self, frag):
+        """(init_state, agg_step, rows_step) for a compiled fragment:
+        ``agg_step(state, cols, valid)`` folds one window into the
+        running group state, ``rows_step(cols, valid)`` runs a row chain
+        over one window. A mesh engine (``parallel/executor.py``) runs
+        them over its row shards."""
+        if frag.is_agg:
+            def agg_step(state, cols, valid):
+                return frag.merge_states(state, frag.window_state(cols, valid))
+
+            return frag.init_state, agg_step, None
+        return None, None, frag.update
 
     def _compile(self, stream: _Stream):
         return compile_fragment(
@@ -1143,6 +1155,7 @@ class Engine:
 
         # Rows: each window's surviving rows to the host, stopping early
         # once the limit is met.
+        _, _, rows_step = self._compile_steps(frag)
         pieces, total = [], 0
         pipe = self._window_pipeline(stream, stats, cancel)
         try:
@@ -1150,7 +1163,7 @@ class Engine:
                 src.handoff()
                 cols = self._with_side(cols, stream)
                 with _timed(stats, "compute"):
-                    out_cols, out_valid = frag.update(cols, valid)
+                    out_cols, out_valid = rows_step(cols, valid)
                     _block_if(stats, self.device)
                 stats.windows += 1
                 with _timed(stats, "materialize"):

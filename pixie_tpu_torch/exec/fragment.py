@@ -215,10 +215,7 @@ def _bind_pre_stage(ops, relation, dicts, registry):
                 + [(n, dt) for n, dt, _np in op.out_cols]
             )
         else:
-            raise NotImplementedError(
-                f"{type(op).__name__} in a fragment is not in this slice of "
-                "the port"
-            )
+            raise AssertionError(op)
 
     def apply(cols, valid):
         cols = dict(cols)

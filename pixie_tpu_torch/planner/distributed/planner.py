@@ -7,22 +7,18 @@ address to its GRPCSource. Here stitching assigns each bridge the mesh
 axes its collective runs over: the ``agents`` axis, plus the ``kelvin``
 axis when a second reduction tier exists.
 
-A copy of the JAX package's ``planner.py``. The two mesh axis names are
-kept here because the port has no ``parallel/`` package yet;
-``stitch(mesh=)`` reads a mesh duck-typed, from its ``axis_names`` and
-``devices.shape``.
+A copy of the JAX package's ``planner.py``. ``stitch(mesh=)`` reads a
+mesh duck-typed, from its ``axis_names`` and ``devices.shape``
+(``parallel/mesh.py``'s ``AgentMesh``).
 """
 
 from __future__ import annotations
 
 from ...exec.plan import Plan
+from ...parallel.mesh import AGENTS, KELVIN
 from .coordinator import Coordinator, DistributedPlan
 from .distributed_state import DistributedState
 from .splitter import Splitter
-
-# Mesh axis names (the JAX package's parallel/mesh.py).
-AGENTS = "agents"
-KELVIN = "kelvin"
 
 
 class DistributedPlanner:

@@ -212,10 +212,28 @@ PKGS = {
 }
 
 
+def _pem_rows(i: int, rng, n: int = 1500) -> dict:
+    return {
+        "time_": np.arange(n, dtype=np.int64),
+        "latency_ns": rng.integers(1000, 1_000_000, n),
+        "resp_status": rng.choice(np.array([200, 404]), n),
+        "service": [f"svc-{(i + j) % 3}" for j in range(n)],
+        "req_path": [f"/api/v{j % 2}/x" for j in range(n)],
+    }
+
+
+def _pems_with_table(tracker, table: str = "http_events") -> int:
+    return sum(table in a.tables for a in tracker.distributed_state().pems)
+
+
 @contextlib.contextmanager
 def _served(pkg_name: str, secret: str = "", agents=None):
     """Two PEMs and a Kelvin behind a served broker and a BusServer;
-    ``agents``, a list, receives the agents."""
+    ``agents``, a list, receives the agents. Each PEM holds its rows
+    before it starts, so every registration and heartbeat it sends
+    names the table, and the broker is built only once the tracker
+    has both PEMs' tables (a wait on the schemas' union would pass on
+    one PEM's)."""
     pkg = PKGS[pkg_name]
     s = pkg.services
     bus = s.MessageBus()
@@ -227,19 +245,11 @@ def _served(pkg_name: str, secret: str = "", agents=None):
         for i in range(2):
             pem = s.PEMAgent(bus, f"pem-{i}", engine=pkg.engine(),
                              heartbeat_interval_s=0.05)
+            pem.append_data("http_events", _pem_rows(i, rng))
             agents.append(pem.start())
-            n = 1500
-            pem.append_data("http_events", {
-                "time_": np.arange(n, dtype=np.int64),
-                "latency_ns": rng.integers(1000, 1_000_000, n),
-                "resp_status": rng.choice(np.array([200, 404]), n),
-                "service": [f"svc-{(i + j) % 3}" for j in range(n)],
-                "req_path": [f"/api/v{j % 2}/x" for j in range(n)],
-            })
-            pem._register()
         agents.append(s.KelvinAgent(bus, "kelvin-0", engine=pkg.engine(),
                                     heartbeat_interval_s=0.05).start())
-        assert _wait_for(lambda: "http_events" in tracker.schemas())
+        assert _wait_for(lambda: _pems_with_table(tracker) == 2)
         broker = s.QueryBroker(bus, tracker, secret=secret)
         broker.serve()
         server = pkg.server(bus, secret=secret)
@@ -250,6 +260,116 @@ def _served(pkg_name: str, secret: str = "", agents=None):
         if broker is not None:
             broker.close()
         for a in agents:
+            a.stop()
+        tracker.close()
+        bus.close()
+
+
+@pytest.mark.parametrize("pkg_name", ["port", "jax"])
+def test_merge_order_changes_only_dictionary_ids(pkg_name):
+    """The Kelvin's bridge merge builds its canonical group dictionary in
+    payload order, in both packages: two PEMs' partial states merged in
+    either order decode to the same rows, and only the dictionary ids
+    (so the wire bytes) differ. Each order gives the same bytes in both
+    packages. The agents merge in agent-id order, not arrival order
+    (``services/agent.py`` ``_maybe_finish_merge``,
+    ``_maybe_stream_remerge``), so arrival order never reaches it."""
+    import pixie_tpu.exec.plan as jax_plan
+    import pixie_tpu.services.wire as jax_wire
+    import pixie_tpu_torch.exec.plan as port_plan
+    import pixie_tpu_torch.services.wire as port_wire
+
+    mods = {"port": (port_plan, port_wire), "jax": (jax_plan, jax_wire)}
+    out = {}
+    for name, (P, wire) in mods.items():
+        def aggs(mode):
+            return P.AggOp(("service",), (
+                P.AggExpr("n", "count", (P.ColumnRef("latency_ns"),)),
+                P.AggExpr("m", "mean", (P.ColumnRef("latency_ns"),)),
+            ), mode=mode)
+
+        rng = np.random.default_rng(0)
+        payloads = []
+        for i in range(2):
+            eng = PKGS[name].engine()
+            eng.append_data("http_events", _pem_rows(i, rng))
+            p = P.Plan()
+            src = p.add(P.MemorySourceOp(table="http_events"))
+            p.add(P.BridgeSinkOp(bridge_id=1), [p.add(aggs("partial"), [src])])
+            payloads.append(wire.decode(wire.encode(
+                eng.execute_plan(p)[("bridge", 1)])))
+        for order in ((0, 1), (1, 0)):
+            mp = P.Plan()
+            b = mp.add(P.BridgeSourceOp(bridge_id=1))
+            mp.add(P.ResultSinkOp("out"), [mp.add(aggs("finalize"), [b])])
+            hb = PKGS[name].engine().execute_plan(
+                mp, bridge_inputs={1: [payloads[i] for i in order]})["out"]
+            d = hb.to_pydict()
+            out[name, order] = (
+                wire.encode({"tables": {"output": hb}}),
+                sorted(zip(d["service"], d["n"].tolist(), d["m"].tolist())),
+                list(hb.dicts["service"].strings),
+            )
+    for order in ((0, 1), (1, 0)):
+        assert out["port", order] == out["jax", order]
+    a, b = out[pkg_name, (0, 1)], out[pkg_name, (1, 0)]
+    assert a[1] == b[1]  # the same rows
+    assert a[2] == ["svc-0", "svc-1", "svc-2"]
+    assert b[2] == ["svc-1", "svc-2", "svc-0"]
+    assert a[0] != b[0]  # the ids, so the bytes, differ
+
+
+def _heartbeat_of(agent) -> dict:
+    """What an agent's heartbeat says of its tables, as of now."""
+    return {"agent_id": agent.agent_id, "schemas": agent._schemas(),
+            "table_stats": agent._table_stats()}
+
+
+@pytest.mark.parametrize("pkg_name", ["port", "jax"])
+def test_stale_heartbeat_hides_a_pem_from_a_union_wait(pkg_name):
+    """The race behind the native client's rare byte mismatch, forced:
+    a heartbeat a PEM built before its rows were appended lands at the
+    tracker after the registration that named the table (they travel on
+    two topics) and takes the table away again. The schemas' union still
+    holds ``http_events`` (the other PEM's), so a wait on it passes, and
+    the query then runs on one PEM: half the rows, another answer, not
+    only other dictionary ids. Both packages do this; ``_served`` waits
+    for every PEM's table and appends before starting instead."""
+    pkg = PKGS[pkg_name]
+    s = pkg.services
+    tracker_mod = __import__(f"{s.__name__}.tracker", fromlist=["x"])
+    bus = s.MessageBus()
+    tracker = s.AgentTracker(bus, expiry_s=60.0, check_interval_s=60.0)
+    # Heartbeats only by hand: the stale one stays the last.
+    pems = [s.PEMAgent(bus, f"pem-{i}", engine=pkg.engine(),
+                       heartbeat_interval_s=600.0).start() for i in range(2)]
+    kelvin = s.KelvinAgent(bus, "kelvin-0", engine=pkg.engine(),
+                           heartbeat_interval_s=600.0).start()
+    broker = None
+    try:
+        stale = _heartbeat_of(pems[1])  # built before the append
+        assert "http_events" not in stale["schemas"]
+        rng = np.random.default_rng(0)
+        for i, pem in enumerate(pems):
+            pem.append_data("http_events", _pem_rows(i, rng))
+            pem._register()
+        assert _wait_for(lambda: _pems_with_table(tracker) == 2)
+        bus.publish(tracker_mod.TOPIC_HEARTBEAT, stale)
+        assert _wait_for(lambda: _pems_with_table(tracker) == 1)
+        assert "http_events" in tracker.schemas()  # the union wait passes
+        broker = s.QueryBroker(bus, tracker)
+        res = broker.execute_script(QUERY, timeout_s=30)
+        n = res["tables"]["output"].to_pydict()["n"]
+        assert int(n.sum()) == 1500  # pem-0's rows only, not 3000
+        # The next heartbeat names the table again.
+        bus.publish(tracker_mod.TOPIC_HEARTBEAT, _heartbeat_of(pems[1]))
+        assert _wait_for(lambda: _pems_with_table(tracker) == 2)
+        res = broker.execute_script(QUERY, timeout_s=30)
+        assert int(res["tables"]["output"].to_pydict()["n"].sum()) == 3000
+    finally:
+        if broker is not None:
+            broker.close()
+        for a in pems + [kelvin]:
             a.stop()
         tracker.close()
         bus.close()

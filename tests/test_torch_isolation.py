@@ -15,7 +15,9 @@ no card, and a deploy role, ``cli run --local``, the load tester's
 ``--local`` or the chaos soak started without a card and without
 ``PIXIE_TPU_TORCH_DEVICE`` exits non-zero, and so does ``deploy
 operator``. Neither does an OTel export pushed over OTLP with the
-operator and the source lint loaded."""
+operator and the source lint loaded, nor a query through the mesh
+executor (``parallel/``: a ``DistributedEngine`` over 8 virtual PEMs on
+the CPU, on its base mesh and replanned onto a degraded one)."""
 
 import ast
 import os
@@ -462,6 +464,56 @@ assert int(out["n"].sum()) == 64, out
 for mod in ("ingest.dynamic", "ingest.tap", "planner.pxtrace_module",
             "ingest.http2_parser", "ingest.amqp_parser"):
     assert "pixie_tpu_torch." + mod in sys.modules, mod
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_mesh_executor_loads_neither_jax_nor_the_jax_package():
+    """A CPU query through ``pixie_tpu_torch.parallel.DistributedEngine``
+    over 8 virtual PEMs, on the base mesh and on a degraded 3-slot one:
+    neither loads JAX or the JAX package."""
+    code = """
+import sys
+import numpy as np
+import torch
+import pixie_tpu_torch.planner.distributed as pd
+from pixie_tpu_torch.parallel import DistributedEngine, agent_mesh
+
+n = 3 * 1024 + 17
+rng = np.random.default_rng(0)
+data = {"time_": np.arange(n, dtype=np.int64),
+        "latency_ns": rng.integers(1000, 10**7, n),
+        "service": rng.choice(["a", "b", "c"], n)}
+q = ("import px\\ndf = px.DataFrame(table='t')\\n"
+     "df.ms = df.latency_ns / 1000000.0\\n"
+     "px.display(df.groupby('service').agg(n=('ms', px.count), "
+     "m=('ms', px.mean)))")
+state = pd.DistributedState(agents=[
+    pd.AgentInfo(agent_id=f"pem-{i}", processes_data=True,
+                 tables=frozenset({"t"})) for i in range(3)
+] + [pd.AgentInfo(agent_id="kelvin-0", processes_data=False,
+                  accepts_remote_sources=True)])
+mesh = agent_mesh(8, devices=[torch.device("cpu")] * 8)
+for st in (None, state):
+    eng = DistributedEngine(window_rows=1024, mesh=mesh,
+                            distributed_state=st)
+    eng.append_data("t", data)
+    out = eng.execute_query(q)["output"].to_pydict()
+    assert int(out["n"].sum()) == n, out
+assert eng.last_distributed_plan.n_data_shards == 3
+assert "pixie_tpu_torch.parallel.executor" in sys.modules
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "pixie_tpu")]
 assert not bad, bad
