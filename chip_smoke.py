@@ -3225,8 +3225,16 @@ def sv_views(eng, ref, window: int, start: int, on_card: bool) -> dict:
                 "rescan_secs": rescan_secs, "rescan_windows": rst.windows,
                 "checked": True})
         out["views"] = eng.views.viewz()
+        # Each registered view's stream is a trace in flight.
+        open_views = [t["kind"] for t in eng.tracer.in_flight()]
+        assert open_views == ["stream"] * len(out["views"]), open_views
     finally:
         eng.views.close()
+    left = eng.tracer.in_flight()
+    assert left == [], left
+    print(json.dumps({"phase": "serving", "check": "view_traces",
+                      "open_before_close": len(open_views),
+                      "in_flight_after_close": len(left), "checked": True}))
     print(json.dumps(out))
     return out
 
@@ -3250,7 +3258,13 @@ def sv_streaming(eng, ref, window: int, start: int, rounds: int,
         streams[kind] = {"sq": sq, "ups": ups, "query": q,
                          "first_poll_secs": time.perf_counter() - t0,
                          "first_poll_windows": sq.last_stats.windows,
+                         "first_poll_rows": sq.last_stats.rows,
                          "polls": []}
+    # Both streams' lifecycle traces are in flight while they run.
+    in_flight = eng.tracer.in_flight()
+    assert sorted((t["kind"], t["id"]) for t in in_flight) == sorted(
+        ("stream", s["sq"].trace.trace_id) for s in streams.values()
+    ), in_flight
     for r in range(rounds):
         sv_append([eng, ref], window, start + r * window, SEED + 40 + r)
         for kind, s in streams.items():
@@ -3295,6 +3309,24 @@ def sv_streaming(eng, ref, window: int, start: int, rounds: int,
             "rows_per_poll": [p["rows"] for p in polls],
             "staged_per_poll": [p["staged_windows"] for p in polls],
             "checked": True}
+    # Closed, each stream's trace ends ok and holds every poll's windows.
+    traces = {}
+    for kind, s in streams.items():
+        s["sq"].close()
+        tr = eng.tracer.last()
+        windows = s["first_poll_windows"] + sum(p["windows"] for p in s["polls"])
+        rows = s["first_poll_rows"] + sum(p["rows"] for p in s["polls"])
+        assert (tr.kind, tr.status) == ("stream", "ok"), (tr.kind, tr.status)
+        assert (tr.windows, tr.rows_in) == (windows, rows), (
+            kind, tr.windows, tr.rows_in, windows, rows)
+        traces[kind] = {"windows": tr.windows, "rows_in": tr.rows_in,
+                        "fragments": len(tr.stats.fragments),
+                        "freshness_lag_ms": tr.usage.freshness_lag_ms}
+    assert eng.tracer.in_flight() == [], eng.tracer.in_flight()
+    print(json.dumps({"phase": "serving", "check": "stream_traces",
+                      "in_flight_while_open": len(in_flight),
+                      "traces": traces, "in_flight_after_close": 0,
+                      "checked": True}))
     print(json.dumps(out))
     return out
 
@@ -3685,10 +3717,16 @@ def cl_expiry_and_live(c, replay, window: int, quarter: int) -> int:
                       "secs": rec["secs"], "wire_bytes": rec["wire_bytes"],
                       "checked": True}))
 
+    from pixie_tpu_torch.exec import tracectx
+
     ups = []
     _zero_launches()
-    handle = c.broker.execute_script_streaming(
-        query_text(name), ups.append, poll_interval_s=CL_POLL_S)
+    # Dispatched inside a broker trace's context: each live PEM's stream
+    # trace is a child of it.
+    btr = c.broker.tracer.begin_query(script=query_text(name), kind="stream")
+    with tracectx.bound(btr.ctx()):
+        handle = c.broker.execute_script_streaming(
+            query_text(name), ups.append, poll_interval_s=CL_POLL_S)
     try:
         def through(rows: int, timeout_s: float = 60.0):
             deadline = time.monotonic() + timeout_s
@@ -3714,8 +3752,35 @@ def cl_expiry_and_live(c, replay, window: int, quarter: int) -> int:
         last = through(len(live) * (quarter + window))
         update_s = time.perf_counter() - t0
         launches = cl_launches(c)
+        parents = {pem.agent_id: [t.get("parent") for t in
+                                  pem.engine.tracer.in_flight()
+                                  if t["kind"] == "stream"]
+                   for pem in live}
     finally:
         handle.cancel()
+    want_parent = btr.ctx()
+    assert all(ps == [want_parent] for ps in parents.values()), parents
+
+    def stream_ends():
+        ends = {}
+        for pem in live:
+            if any(t["kind"] == "stream" for t in pem.engine.tracer.in_flight()):
+                return None
+            ends[pem.agent_id] = next(
+                t["status"] for t in pem.engine.tracer.recent()
+                if t["kind"] == "stream")
+        return ends
+
+    deadline = time.monotonic() + 30.0
+    while (ends := stream_ends()) is None:
+        assert time.monotonic() < deadline, "stream traces still in flight"
+        time.sleep(0.05)
+    c.broker.tracer.end_query(btr)
+    assert set(ends.values()) == {"cancelled"}, ends
+    print(json.dumps({"phase": "cluster_live", "check": "stream_traces",
+                      "broker_trace_id": btr.trace_id,
+                      "pems_with_child_trace": len(parents),
+                      "ends": ends, "checked": True}))
     one_shot = cl_query(c, name)
     (want,) = one_shot["res"]["tables"].values()
     check_library_output(f"cluster live {name}", last["batch"], want,

@@ -31,7 +31,9 @@ runs on the query thread, so every accumulation is locked.
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from dataclasses import dataclass, field
 
 # Stage names -> the QueryStats field that sums their seconds, and event
@@ -90,6 +92,15 @@ class FragmentStats:
             s.rows += int(rows)
             s.count += 1
             s.nbytes += int(nbytes)
+
+    @contextlib.contextmanager
+    def timed(self, stage: str, rows: int = 0, nbytes: int = 0):
+        """Charge the seconds spent inside the block to ``stage``."""
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            self.add(stage, time.perf_counter() - t0, rows, nbytes)
 
     def stage_snapshot(self) -> dict:
         """{stage: (seconds, rows, count, nbytes)} under the lock."""

@@ -386,6 +386,15 @@ class Engine:
         self._last_join_decision = jd
 
     @property
+    def last_pipeline(self) -> Optional[dict]:
+        """The last finished query's window-pipeline counters (depth,
+        windows, stage_secs, stall_secs); None when it ran no pipeline."""
+        st = self.last_stats
+        if st is None or not st.pipeline["depth"]:
+            return None
+        return dict(st.pipeline)
+
+    @property
     def last_resource_report(self):
         s = self._scratch
         if s is not None:
@@ -485,7 +494,8 @@ class Engine:
                 return dict(entry.result)
             disposition = status
         if servable:
-            answer = self._try_view_answer(query, now_ns, max_output_rows)
+            answer = self._try_view_answer(query, now_ns, max_output_rows,
+                                           trace)
             if answer is not None:
                 trace.cache = rc.VIEW
                 self.tracer.end_query(trace, status="ok")
@@ -552,20 +562,22 @@ class Engine:
         return self._views
 
     def _try_view_answer(self, query: str, now_ns: int,
-                         max_output_rows: int):
+                         max_output_rows: int, trace):
         """The materialized-view answer: count the run, register a view
         when the manifest or the run count says so, and answer from a
         registered view by folding the rows appended since its last
-        answer. None when no view covers the query (execute it). A view
-        that fails to answer is logged and the query executes, as in the
-        JAX engine."""
+        answer; the view's freshness lag goes onto the query's
+        ``trace``. None when no view covers the query (execute it). A
+        view that fails to answer is logged and the query executes, as
+        in the JAX engine."""
         from .views import view_candidates_enabled
 
         if not view_candidates_enabled(query):
             return None
         try:
             return self.views.serve(
-                query, now_ns=now_ns, max_output_rows=max_output_rows
+                query, now_ns=now_ns, max_output_rows=max_output_rows,
+                trace=trace,
             )
         except Exception:
             import logging

@@ -392,6 +392,11 @@ class ProgramRegistry:
                 ),
             }
 
+    def clear(self) -> None:
+        """Forget every live record (evicted counters are kept)."""
+        with self._lock:
+            self._records.clear()
+
 
 def schema_signature(relation) -> tuple:
     """A fragment bind's shape signature: its input columns and types."""

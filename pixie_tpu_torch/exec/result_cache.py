@@ -130,11 +130,47 @@ class ResultCache:
     Thread-safe; a lookup is a dict probe and one watermark read per
     scanned table."""
 
-    def __init__(self):
+    def __init__(self, registry=None):
         self._entries: "OrderedDict[tuple, CacheEntry]" = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
         self.counts = {HIT: 0, MISS: 0, STALE: 0}
+        # The metrics registry of the cache's counters and byte gauge
+        # (the process default when None), as in the JAX package.
+        self._registry = registry
+        self._metrics: dict | None = None
+
+    def _m(self) -> dict:
+        if self._metrics is None:
+            reg = self._registry
+            if reg is None:
+                from ..services.observability import default_registry
+
+                reg = self._registry = default_registry
+            self._metrics = {
+                HIT: reg.counter(
+                    "pixie_result_cache_hits_total",
+                    "Queries served from the watermark-validated result "
+                    "cache (zero compile/admission/dispatch cost)",
+                ),
+                MISS: reg.counter(
+                    "pixie_result_cache_misses_total",
+                    "Cacheable queries with no valid entry (absent or "
+                    "watermark-regressed)",
+                ),
+                STALE: reg.counter(
+                    "pixie_result_cache_stale_total",
+                    "Cache entries found but past the script's "
+                    "staleness budget (re-executed and replaced)",
+                ),
+                "bytes": reg.gauge(
+                    "pixie_result_cache_bytes",
+                    "Bytes held by result-cache entries (LRU budget "
+                    "result_cache_mb; summed across broker + engine "
+                    "instances)",
+                ),
+            }
+        return self._metrics
 
     # -- config --------------------------------------------------------------
     @staticmethod
@@ -154,6 +190,7 @@ class ResultCache:
     def _count(self, status: str) -> None:
         with self._lock:
             self.counts[status] += 1
+        self._m()[status].inc()
 
     # -- core ----------------------------------------------------------------
     def lookup(self, script: str, now_ns: int, max_output_rows: int,
@@ -195,6 +232,7 @@ class ResultCache:
                 self._entries.move_to_end(key)
             e.hits += 1
             self.counts[HIT] += 1
+        self._m()[HIT].inc()
         return HIT, e, max(0.0, round(lag_ms, 3))
 
     def store(self, script: str, resolved_now_ns: int, max_output_rows: int,
@@ -232,6 +270,8 @@ class ResultCache:
             while self._bytes > budget and len(self._entries) > 1:
                 _k, victim = self._entries.popitem(last=False)
                 self._bytes -= victim.nbytes
+            total = self._bytes
+        self._m()["bytes"].set(total)
         return MISS
 
     def _drop(self, key: tuple) -> None:
@@ -239,11 +279,14 @@ class ResultCache:
             e = self._entries.pop(key, None)
             if e is not None:
                 self._bytes -= e.nbytes
+            total = self._bytes
+        self._m()["bytes"].set(total)
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
             self._bytes = 0
+        self._m()["bytes"].set(0)
 
     def cachez(self) -> dict:
         """The cache's state: budget, bytes, counters and entries."""

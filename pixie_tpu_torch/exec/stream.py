@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import get_flag
-from ..types.batch import HostBatch
+from ..types.batch import HostBatch, gather_rows
 from ..types.dtypes import DataType, host_dtypes
 from ..types.relation import Relation
 from ..types.strings import StringDictionary
@@ -176,7 +176,7 @@ def _to_host_batch(meta_list, cols, valid, limit=None) -> HostBatch:
             rel_items.append((m.name, DataType.STRING))
             continue
         out_cols[m.name] = tuple(
-            _rows(p, idx).astype(h, copy=False)
+            gather_rows(p, idx).astype(h, copy=False)
             for p, h in zip(cols[m.name], host_dtypes(m.dtype))
         )
         if m.dict is not None:
@@ -185,14 +185,6 @@ def _to_host_batch(meta_list, cols, valid, limit=None) -> HostBatch:
     return HostBatch(
         relation=Relation(rel_items), cols=out_cols, length=len(idx), dicts=dicts
     )
-
-
-def _rows(p, idx) -> np.ndarray:
-    if p.dtype == torch.uint64:
-        return p.view(torch.int64).index_select(0, idx).cpu().numpy().view(
-            np.uint64
-        )
-    return p.index_select(0, idx).cpu().numpy()
 
 
 def _empty_host_batch(relation, dicts=None) -> HostBatch:

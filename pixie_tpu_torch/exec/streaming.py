@@ -28,6 +28,13 @@ the capacity and refolds. Each poll's counters are in ``last_stats``
 (an ``exec/analyze.py`` ``QueryStats``). A time-bounded source, a join,
 a union and a UDTF source are refused.
 
+A stream has one lifecycle trace (``exec/trace.py``, kind ``stream``):
+it shows in ``/debug/queryz`` as in flight until ``close()`` or the end
+of ``run()`` ends it, each compile (rebuckets too) is a fragment of it,
+every poll's window work and freshness lag are charged to it as well as
+to ``last_stats``, and the finished trace is a ``__queries__`` row like
+a one-shot query's.
+
 The per-agent half of a distributed live query ends in a
 ``BridgeSinkOp``: each poll ships the current partial state
 (``mode="state"``, an ``AggStatePayload``) or the new rows
@@ -67,6 +74,7 @@ from .stream import (
     _timed,
     _to_host_batch,
 )
+from .trace import plan_script
 from .zoneskip import chain_pruner
 
 
@@ -83,6 +91,49 @@ class StreamUpdate:
     # earlier ones); "rows": a row bridge's new rows.
     mode: str
     bridge_id: object = None
+
+
+class _PollStats(QueryStats):
+    """One poll's counters (``StreamingQuery.last_stats``), charged to
+    the stream's trace as well: stage times and window events through
+    ``add``, rows and windows through ``count``."""
+
+    def __init__(self, trace_stats=None):
+        super().__init__()
+        self.trace_stats = trace_stats
+
+    def add(self, stage: str, secs: float = 0.0, nbytes: int = 0) -> None:
+        super().add(stage, secs, nbytes)
+        if self.trace_stats is not None:
+            self.trace_stats.add(stage, secs, nbytes)
+
+    def count(self, rows: int) -> None:
+        """One window of ``rows`` rows folded or emitted."""
+        self.rows += rows
+        self.windows += 1
+        ts = self.trace_stats
+        if ts is not None:
+            with ts._lock:
+                ts.rows += rows
+                ts.windows += 1
+
+    def note_freshness_lag(self, lag_ms: float, table: str = "") -> None:
+        super().note_freshness_lag(lag_ms, table)
+        if self.trace_stats is not None:
+            self.trace_stats.note_freshness_lag(lag_ms, table)
+
+    def close(self, wall_s: float) -> None:
+        """End the poll: its wall time and pipeline counters go to the
+        trace too."""
+        self.wall_s = wall_s
+        ts = self.trace_stats
+        if ts is None:
+            return
+        with ts._lock:
+            ts.wall_s += wall_s
+            ts.pipeline["depth"] = self.pipeline["depth"]
+            for k in ("windows", "stage_secs", "stall_secs"):
+                ts.pipeline[k] += self.pipeline[k]
 
 
 @dataclass
@@ -148,7 +199,8 @@ class StreamingQuery:
     since the last poll and emits 0..n StreamUpdates; ``run()`` polls
     until cancelled."""
 
-    def __init__(self, engine: Engine, plan: Plan, emit, cancel=None):
+    def __init__(self, engine: Engine, plan: Plan, emit, cancel=None,
+                 script: str = ""):
         self.engine = engine
         self.emit = emit
         self.cancel = cancel
@@ -182,7 +234,16 @@ class StreamingQuery:
         self._fold_lo: dict = dict(self._wm)
         self._state = None
         self._frag = None
-        self._compile()
+        self._tfrag = None  # the current compile's fragment on the trace
+        # Begun last, so that an earlier raise leaves no trace in flight.
+        self.trace = engine.tracer.begin_query(
+            script=script or plan_script(plan), kind="stream"
+        )
+        try:
+            self._compile()
+        except BaseException as e:
+            self.close(status="error", error=f"{type(e).__name__}: {e}")
+            raise
 
     def _compile(self):
         stream = _Stream(self.relation, self.dicts, list(self.ops), self.tablets)
@@ -190,7 +251,19 @@ class StreamingQuery:
             self.ops, self.relation, self.dicts, self.engine.registry,
             self.engine.device, col_stats=_stream_col_stats(stream),
         )
+        if self.trace is not None:
+            # Each compile (a rebucket's too) is a fragment of the trace.
+            self._tfrag = self.trace.stats.new_fragment(self.ops, self._frag)
         self._state = None  # a recompiled aggregate refolds from the start
+
+    def close(self, status: str = "ok", error: str = "") -> None:
+        """End the stream's trace; a second call does nothing. ``run()``
+        calls it on its way out; a caller that drives ``poll()`` itself
+        closes the stream, or ``/debug/queryz`` lists it in flight."""
+        tr, self.trace = self.trace, None
+        if tr is not None:
+            tr.pipeline = dict(tr.stats.pipeline)
+            self.engine.tracer.end_query(tr, status=status, error=error)
 
     def _new_windows(self, stats: QueryStats):
         """(cols, valid, window, (tablet key, row_hi)) per device window
@@ -298,8 +371,7 @@ class StreamingQuery:
                         )
                     n = valid[1] - valid[0]
                     rows += n
-                    stats.rows += n
-                    stats.windows += 1
+                    stats.count(n)
                 # A pruned tail folds nothing but is still progress: rows
                 # were consumed, so the poll emits.
                 folded = True
@@ -324,18 +396,23 @@ class StreamingQuery:
 
         wm = _table_mod.max_watermark_ns(self.tablets)
         if wm is not None:
-            stats.note_freshness_lag((time.time_ns() - wm) / 1e6)
+            stats.note_freshness_lag((time.time_ns() - wm) / 1e6,
+                                     self.chain.source.table)
 
     def poll(self) -> int:
         """Fold the new rows and emit updates. Returns rows consumed;
-        ``last_stats`` holds the poll's counters."""
-        stats = self.last_stats = QueryStats()
+        ``last_stats`` holds the poll's counters, which the stream's
+        trace is charged too."""
+        tr = self.trace
+        stats = self.last_stats = _PollStats(
+            tr.stats if tr is not None else None
+        )
         t0 = time.perf_counter()
         try:
             self._note_freshness(stats)
             return self._poll_inner(stats)
         finally:
-            stats.wall_s = time.perf_counter() - t0
+            stats.close(time.perf_counter() - t0)
 
     def _poll_inner(self, stats: QueryStats) -> int:
         frag = self._frag
@@ -384,8 +461,9 @@ class StreamingQuery:
                     hb = _to_host_batch(frag.out_meta, out_cols, out_valid, left)
                 n = valid[1] - valid[0]
                 rows += n
-                stats.rows += n
-                stats.windows += 1
+                stats.count(n)
+                if self._tfrag is not None:
+                    self._tfrag.rows_out += hb.length
                 if hb.length:
                     self.emit(self._rows_update(hb))
                     self.seq += 1
@@ -439,8 +517,11 @@ class StreamingQuery:
 
     def run(self, poll_interval_s: float = 0.25, max_rounds=None) -> int:
         """Poll until cancelled, the row limit is met or ``max_rounds``
-        polls have run. Returns the number of updates emitted."""
+        polls have run, then end the stream's trace: ``ok``,
+        ``cancelled`` or ``error``. Returns the number of updates
+        emitted."""
         rounds = 0
+        status, error = "ok", ""
         try:
             while True:
                 self._check_cancel()
@@ -450,11 +531,19 @@ class StreamingQuery:
                     break
                 if self.cancel is not None:
                     if self.cancel.wait(poll_interval_s):
+                        status = "cancelled"
                         break
                 else:
                     time.sleep(poll_interval_s)
-        except (StopStream, QueryCancelled):
-            pass  # the row limit is met, or the stream was cancelled
+        except StopStream:
+            pass  # the row limit is met: a normal end
+        except QueryCancelled as e:
+            status, error = "cancelled", str(e)
+        except BaseException as e:
+            status, error = "error", f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            self.close(status=status, error=error)
         return self.seq
 
 
@@ -483,4 +572,5 @@ def stream_query(engine: Engine, query: str, emit, cancel=None,
         table_stats=engine._compile_table_stats(),
     )
     compiled = compile_pxl(query, state)
-    return StreamingQuery(engine, compiled.plan, emit, cancel=cancel)
+    return StreamingQuery(engine, compiled.plan, emit, cancel=cancel,
+                          script=query)

@@ -19,7 +19,10 @@ rebucket (the stream refolds at twice the capacity) and across true
 expiry (the stream refolds from the live rows). A time-bounded script
 is served while the requested ``now`` stays within its staleness budget
 of the view's registration; past it the view registers again at the
-new ``now`` (one full fold, then incremental again).
+new ``now`` (one full fold, then incremental again). Each view's stream
+has its own lifecycle trace: a view replaced by a new registration is
+closed, and ``ViewRegistry.close`` closes every view, so no trace is
+left in flight.
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ class MaterializedView:
             now_ns=self.now_ns, max_output_rows=self.max_output_rows,
         )
         if not self.sq.chain.is_agg:
+            self.sq.close()
             raise QueryError(
                 "only aggregate chains materialize: an append stream "
                 "has no finalize-over-state to answer from"
@@ -114,6 +118,10 @@ class MaterializedView:
             self.sq.poll()
             self.answers += 1
             return dict(self._last)
+
+    def close(self) -> None:
+        """End the view's stream (and its trace)."""
+        self.sq.close()
 
     def to_dict(self) -> dict:
         return {
@@ -167,15 +175,19 @@ class ViewRegistry:
             self.engine, query, now_ns=now_ns, max_output_rows=max_output_rows,
         )
         with self._lock:
+            old = self._views.pop((sha, int(max_output_rows)), None)
             self._views[(sha, int(max_output_rows))] = v
+        if old is not None:
+            old.close()
         return v
 
     def serve(self, query: str, now_ns: int = 0,
-              max_output_rows: int = 10_000):
+              max_output_rows: int = 10_000, trace=None):
         """Answer ``query`` from its view, registering one first when the
         manifest or the run count says so; None when no view covers it.
         The answer's poll counters become the engine's ``last_stats``,
-        with ``cache`` set to ``view``."""
+        with ``cache`` set to ``view``; the view's freshness lag goes
+        onto ``trace``, the query's own trace, when one is given."""
         sha = script_sha(query)
         key = (sha, int(max_output_rows))
         req_now = int(now_ns) or time.time_ns()
@@ -208,6 +220,9 @@ class ViewRegistry:
         st = v.sq.last_stats
         st.cache = VIEW
         st.freshness_lag_ms = v.freshness_lag_ms()
+        if trace is not None:
+            trace.note_freshness_lag(v.sq.chain.source.table,
+                                     st.freshness_lag_ms)
         self.engine.last_stats = st
         self.engine.last_join_decision = None
         return result
@@ -218,6 +233,10 @@ class ViewRegistry:
         return [v.to_dict() for v in views]
 
     def close(self) -> None:
-        """Drop every view (later repeats execute, or register again)."""
+        """Close and drop every view (later repeats execute, or register
+        again)."""
         with self._lock:
+            views = list(self._views.values())
             self._views.clear()
+        for v in views:
+            v.close()

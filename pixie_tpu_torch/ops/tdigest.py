@@ -134,9 +134,12 @@ def batch_to_digest(values, group_ids, mask, num_groups: int,
     return _compress(means, w, k, ordered=True)
 
 
-def digest_update(carry, group_ids, mask, values):
-    """UDA update: fold a batch into the digest carry."""
+def digest_update(carry, group_ids, mask, values, *,
+                  num_groups: int | None = None):
+    """UDA update: fold a batch into the digest carry (``num_groups``
+    bins the batch at another group count than the carry's)."""
     g, k = carry[0].shape
+    g = g if num_groups is None else num_groups
     return digest_merge(carry, batch_to_digest(values, group_ids, mask, g, k))
 
 

@@ -107,11 +107,13 @@ class StartSpec:
 
 @dataclass(frozen=True)
 class StopSpec:
-    """When a cursor is exhausted: at a time, or at the end of the table
-    when the cursor was made (a live query polls with a
+    """When a cursor is exhausted: at a time, at the end of the table
+    when the cursor was made, or never (a tailing cursor, which sees
+    later appends; a live query over the device windows polls with a
     ``StreamingQuery`` instead)."""
 
     stop_time: Optional[int] = None
+    infinite: bool = False
 
     @classmethod
     def at_time(cls, t: int) -> "StopSpec":
@@ -120,6 +122,10 @@ class StopSpec:
     @classmethod
     def current_end(cls) -> "StopSpec":
         return cls()
+
+    @classmethod
+    def never(cls) -> "StopSpec":
+        return cls(infinite=True)
 
 
 class _PyBackend:
@@ -396,6 +402,9 @@ class Cursor:
 
     def update_stop_spec(self, stop: StopSpec) -> None:
         t = self._table
+        if stop.infinite:
+            self._stop_row_id = None  # tails the table: never done
+            return
         self._stop_row_id = t.end_row_id()
         if stop.stop_time is not None:
             # At the time or the current end, whichever comes first.
@@ -404,7 +413,16 @@ class Cursor:
             )
 
     def done(self) -> bool:
+        if self._stop_row_id is None:
+            return False
         return self._next_row_id >= self._stop_row_id
+
+    def next_batch_ready(self) -> bool:
+        """Whether ``next_batch`` has rows to return now (a tailing
+        cursor: whether rows were appended past its position)."""
+        if self._stop_row_id is not None:
+            return not self.done()
+        return self._next_row_id < self._table.end_row_id()
 
     def skip_to(self, row_id: int) -> None:
         """Move past rows a zone-map check proved irrelevant (never
@@ -412,14 +430,19 @@ class Cursor:
         self._next_row_id = max(self._next_row_id, int(row_id))
 
     def next_batch(self, max_rows: int, cols: Optional[Sequence[str]] = None):
-        """Up to max_rows rows as a HostBatch, or None when exhausted."""
+        """Up to max_rows rows as a HostBatch, or None when exhausted (or,
+        for a tailing cursor, when no row is waiting). After expiry the
+        read resumes at the first live row."""
         if self.done():
             return None
-        max_rows = min(max_rows, self._stop_row_id - self._next_row_id)
+        stop = self._stop_row_id
+        if stop is not None:
+            max_rows = min(max_rows, stop - self._next_row_id)
         planes, first, n = self._table.read_rows(self._next_row_id, max_rows)
-        # Expiry may have moved the read past the stop snapshot.
-        n = min(n, max(0, self._stop_row_id - first))
-        planes = [p[:n] for p in planes]
+        if stop is not None:
+            # Expiry may have moved the read past the stop snapshot.
+            n = min(n, max(0, stop - first))
+            planes = [p[:n] for p in planes]
         if n == 0:
             self._next_row_id = max(self._next_row_id, first)
             return None

@@ -1,10 +1,10 @@
-"""TableStore: the name -> Table map shared by ingest and queries.
+"""TableStore: the name/id -> Table map shared by ingest and queries.
 
-Reference parity: ``src/table_store/table/table_store.h:79``, with tablet
+Reference parity: ``src/table_store/table/table_store.h:79``: tables are
+addressable by name and by numeric id (ingest pushes by id), with tablet
 support (``tablets_group.h``): a (table, tablet_id) pair maps to its own
 physical Table, and reads over the table see all tablets. A port of the
-JAX package's ``table_store/table_store.py`` without numeric table ids.
-A table created with a device and a window size stages its windows at
+JAX package's ``table_store/table_store.py``. A table created with a device and a window size stages its windows at
 that size onto that device from its first append on; new tablets
 inherit both from the base tablet. A tiered table's demoted windows keep
 their staged device windows (``Table.first_row_id`` spans both tiers),
@@ -20,13 +20,15 @@ import threading
 from typing import Optional
 
 from ..types.relation import Relation
-from .table import Table
+from .table import DEFAULT_COMPACTED_ROWS, Table
 
 DEFAULT_TABLET = ""
 
 
-def _new_table(name, relation, max_bytes, dicts, device, device_window_rows):
-    t = Table(name, relation, max_bytes=max_bytes, dicts=dicts)
+def _new_table(name, relation, max_bytes, dicts, device, device_window_rows,
+               compacted_rows=DEFAULT_COMPACTED_ROWS):
+    t = Table(name, relation, max_bytes=max_bytes,
+              compacted_rows=compacted_rows, dicts=dicts)
     t.device = device
     if device_window_rows is not None:
         t.device_window_rows = int(device_window_rows)
@@ -38,6 +40,9 @@ class TableStore:
         self._lock = threading.Lock()
         # name -> {tablet_id -> Table}
         self._tables: dict[str, dict[str, Table]] = {}
+        self._ids: dict[int, str] = {}
+        self._names_to_ids: dict[str, int] = {}
+        self._next_id = 1
         # Lazy per-table byte budgets: {name: max_bytes, "*": default}.
         # Applied when a table is created with no explicit max_bytes (a
         # PEM installs the reference's InitSchemas split here).
@@ -48,11 +53,26 @@ class TableStore:
             return max_bytes
         return self.table_budgets.get(name, self.table_budgets.get("*", -1))
 
+    def _name_id_locked(self, name: str, table_id: Optional[int] = None):
+        """Give ``name`` its id (``table_id``, else the next free one) the
+        first time the table is seen."""
+        if name not in self._names_to_ids:
+            tid = table_id if table_id is not None else self._next_id
+            self._next_id = max(self._next_id, tid) + 1
+            self._ids[tid] = name
+            self._names_to_ids[name] = tid
+
+    def _name_of_locked(self, name_or_id):
+        return (self._ids.get(name_or_id) if isinstance(name_or_id, int)
+                else name_or_id)
+
     def add_table(
         self,
         name: str,
         relation: Relation | None = None,
+        table_id: Optional[int] = None,
         max_bytes: int = -1,
+        compacted_rows: int = DEFAULT_COMPACTED_ROWS,
         tablet_id: str = DEFAULT_TABLET,
         device_window_rows: int | None = None,
         device=None,
@@ -62,9 +82,10 @@ class TableStore:
             t = _new_table(
                 name, relation, self._budget_for(name, max_bytes),
                 base.dicts if base is not None else None,
-                device, device_window_rows,
+                device, device_window_rows, compacted_rows,
             )
             self._tables.setdefault(name, {})[tablet_id] = t
+            self._name_id_locked(name, table_id)
             return t
 
     def ensure_table(
@@ -86,11 +107,27 @@ class TableStore:
                 device, device_window_rows,
             )
             self._tables.setdefault(name, {})[DEFAULT_TABLET] = t
+            self._name_id_locked(name)
             return t
 
-    def get_table(self, name: str, tablet_id: str = DEFAULT_TABLET) -> Optional[Table]:
+    def get_table(self, name_or_id, tablet_id: str = DEFAULT_TABLET) -> Optional[Table]:
         with self._lock:
+            name = self._name_of_locked(name_or_id)
+            if name is None:
+                return None
             return self._tables.get(name, {}).get(tablet_id)
+
+    def get_table_id(self, name: str) -> Optional[int]:
+        with self._lock:
+            return self._names_to_ids.get(name)
+
+    def get_table_name(self, table_id: int) -> str:
+        with self._lock:
+            return self._ids.get(table_id, "")
+
+    def table_ids(self) -> list[int]:
+        with self._lock:
+            return sorted(self._ids)
 
     def table_names(self) -> list[str]:
         with self._lock:
@@ -100,14 +137,18 @@ class TableStore:
         with self._lock:
             return [t for _, t in sorted(self._tables.get(name, {}).items())]
 
-    def append_data(self, name: str, data, tablet_id: str = DEFAULT_TABLET,
+    def append_data(self, name_or_id, data, tablet_id: str = DEFAULT_TABLET,
                     time_cols=("time_",)):
         """Ingest push target (table_store.h:152 AppendData). Creates the
-        table or tablet on first write; new tablets inherit the base
-        tablet's schema, byte budget, (shared) string dictionaries,
-        device and window size, so every tablet encodes into one id
-        space and stages like its base."""
+        table or tablet on first write; a table addressed by id must
+        exist already (``KeyError`` otherwise). New tablets inherit the
+        base tablet's schema, byte budget, compaction size, (shared)
+        string dictionaries, device and window size, so every tablet
+        encodes into one id space and stages like its base."""
         with self._lock:
+            name = self._name_of_locked(name_or_id)
+            if name is None:
+                raise KeyError(f"no table with id {name_or_id}")
             tablets = self._tables.setdefault(name, {})
             t = tablets.get(tablet_id)
             if t is None:
@@ -120,9 +161,20 @@ class TableStore:
                     base.dicts if base is not None else None,
                     base.device if base is not None else None,
                     base.device_window_rows if base is not None else None,
+                    base.compacted_rows if base is not None
+                    else DEFAULT_COMPACTED_ROWS,
                 )
                 tablets[tablet_id] = t
+            self._name_id_locked(name)
         return t.append(data, time_cols=time_cols)
+
+    def compact_all(self) -> int:
+        """One compaction pass over every tablet (the body of the
+        reference's timed compaction). Returns the cold batches made."""
+        with self._lock:
+            tables = [t for tablets in self._tables.values()
+                      for t in tablets.values()]
+        return sum(t.compact() for t in tables)
 
     def relation(self, name: str) -> Optional[Relation]:
         tablets = self.tablets(name)

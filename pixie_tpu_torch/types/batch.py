@@ -101,6 +101,14 @@ class HostBatch:
         rel = relation if relation is not None else Relation(rel_items)
         return cls(relation=rel, cols=cols, length=length or 0, dicts=out_dicts)
 
+    @property
+    def nbytes(self) -> int:
+        """Total plane bytes (the unit of staging and bridge-wire cost
+        accounting; dictionary strings not included)."""
+        return int(sum(
+            p.nbytes for planes in self.cols.values() for p in planes
+        ))
+
     def to_pydict(self, decode_strings: bool = True) -> dict[str, np.ndarray]:
         out: dict[str, np.ndarray] = {}
         for name, dt in self.relation.items():
@@ -156,6 +164,58 @@ class DeviceBatch:
         """Order the consumer's current stream after the copy (once per
         consumer stream)."""
         handoff(self.cols, self.event, self._handed)
+
+    @property
+    def capacity(self) -> int:
+        return self.valid.shape[-1]
+
+    def n_valid(self) -> torch.Tensor:
+        return self.valid.to(torch.int32).sum(dim=-1)
+
+    def plane(self, name: str, i: int = 0) -> torch.Tensor:
+        return self.cols[name][i]
+
+    def _with(self, relation: Relation, cols: dict, valid) -> "DeviceBatch":
+        # The same copy: its event and the streams already handed it.
+        return DeviceBatch(relation=relation, cols=cols, valid=valid,
+                           event=self.event, _handed=self._handed)
+
+    def with_cols(self, new_cols: Mapping[str, Planes],
+                  relation: Relation) -> "DeviceBatch":
+        return self._with(relation, dict(new_cols), self.valid)
+
+    def with_valid(self, valid) -> "DeviceBatch":
+        return self._with(self.relation, self.cols, valid)
+
+    def select(self, names: Sequence[str]) -> "DeviceBatch":
+        return self._with(self.relation.select(names),
+                          {n: self.cols[n] for n in names}, self.valid)
+
+    def to_host(self, dicts: Mapping[str, StringDictionary] | None = None,
+                eow: bool = False, eos: bool = False) -> HostBatch:
+        """Copy back to the host, compacted to the valid rows (gathered on
+        the device, so only they cross; a uint64 plane goes through its
+        int64 view). ``eow``/``eos`` are the host batch's stream
+        markers."""
+        self.handoff()
+        idx = torch.nonzero(self.valid).flatten()
+        cols: dict[str, Planes] = {
+            name: tuple(gather_rows(p, idx).astype(h, copy=False)
+                        for p, h in zip(self.cols[name], host_dtypes(dt)))
+            for name, dt in self.relation.items()
+        }
+        return HostBatch(relation=self.relation, cols=cols, length=len(idx),
+                         dicts=dict(dicts) if dicts else {}, eow=eow, eos=eos)
+
+
+def gather_rows(p: torch.Tensor, idx: torch.Tensor) -> np.ndarray:
+    """The rows ``idx`` of a device plane, gathered on its device and
+    copied to the host (a uint64 plane through its int64 view)."""
+    if p.dtype == torch.uint64:
+        return p.view(torch.int64).index_select(0, idx).cpu().numpy().view(
+            np.uint64
+        )
+    return p.index_select(0, idx).cpu().numpy()
 
 
 # -- staging onto a CUDA device -----------------------------------------------

@@ -67,6 +67,17 @@ _PAD_VALUES = {
 }
 
 
+_NUMERIC = frozenset({DataType.INT64, DataType.FLOAT64, DataType.TIME64NS})
+
+
+def n_planes(dt: DataType) -> int:
+    return len(_DEVICE_DTYPES[dt])
+
+
+def is_numeric(dt: DataType) -> bool:
+    return dt in _NUMERIC
+
+
 def device_dtypes(dt: DataType) -> tuple:
     return _DEVICE_DTYPES[dt]
 
