@@ -129,7 +129,7 @@ without them. In order it:
    ``tracepoints``: the cluster layout (4 PEMs and a Kelvin on the card)
    with a ``TracepointRegistry`` on the broker; one pxtrace script
    through ``broker.execute_script`` upserts ``app_tp`` on each PEM's
-   ``app.handle``, 2^19 seeded calls per PEM (drained every 2^15 calls,
+   ``app.handle``, 2^18 seeded calls per PEM (drained every 2^15 calls,
    none dropped) fill ``app_calls``, and one script's FLOAT64 count,
    mean and max of ``size_kb`` by service (``dense_fold``) and quantiles
    of ``latency_ns`` by service (``hist_fold``) are held to numpy; then
@@ -165,10 +165,11 @@ without them. In order it:
    device_join_select: zone-skipped probe windows) and the skew shape
    forced to single and sorted; each query prints its JoinDecision,
    three timed turns after a warm-up (one when forced), the host syncs
-   per probe window and the card's idle share;
+   per probe window and the card's idle share (not for the forced turns,
+   for the time limit);
 9. the library phase: ``init_schemas`` on a fresh engine with the
    default budgets, every Stirling table filled to its 32 MiB budget
-   (http_events cut to 2^22 rows, the telemetry tables 4096 rows) from
+   (http_events cut to 2^21 rows, the telemetry tables 4096 rows) from
    a seeded generator with the vocabularies of the JAX package's script
    harness, and each of the 80 shipped scripts but px/agent_status (it
    runs in the cluster phase) run on the card (a warm-up, three timed turns, one under torch.profiler)
@@ -219,7 +220,18 @@ without them. In order it:
    the receiver (the trace arrives with a span per window; with the
    receiver stopped the query answers and the failed push is counted).
    The cluster phase runs the export through its broker too: the sink
-   runs on the Kelvin and no PEM holds an export;
+   runs on the Kelvin and no PEM holds an export. Between the two, the
+   concurrency phase on the same engine and windows: the three scripts
+   solo (answers, seconds, each kernel's launches by the query's thread),
+   then 2 and 4 threads each running them mixed for 3 turns (timed under
+   torch.profiler): every answer against the solo one, every query's launches against the solo
+   query's, ``max_inflight`` equal to the threads, every trace over all
+   16,777,216 rows and none left in flight; one of two concurrent
+   px/service_stats queries cancelled; a 2-thread turn with residency
+   off (every window through the one stager); 2^17-row appends racing 10
+   count queries on an engine of their own (counts never fall); and the
+   load tester's sweep at 1, 2 and 4 clients over its local executor on
+   the card (no errors, its histogram's count exact);
 13. the bench phase (at the end): ``pixie_tpu_torch.bench.run_shape``
    for bench.py's ten shapes at 2^22 head rows (each shape's divisor
    applies), the A/B pass off, each checked with bench.py's numpy
@@ -1527,14 +1539,19 @@ px.display(out)
 
 
 def join_query(eng, query: str, check, max_rows: int = 10_000,
-               strategy: str | None = None, turns: int = 3) -> dict:
+               strategy: str | None = None, turns: int = 3,
+               traced: bool = True) -> dict:
     """One join query: a checked warm-up, ``turns`` timed turns (each
-    checked), one turn counting host syncs by line and one under
-    torch.profiler. The kernels' launch counters are set to 0 before the
+    checked), and with ``traced`` one turn counting host syncs by line
+    and one under torch.profiler. The kernels' launch counters are set
+    to 0 before the
     timed turns and read after them. ``driver_syncs`` are the syncs made
     inside the device join drivers; per probe window (each dispatch read
     back) they are the join drivers' readbacks and staging copies, the rest
-    are the aggregates' finalize reads and the joins' materializations."""
+    are the aggregates' finalize reads and the joins' materializations.
+    ``windows_folded`` counts the scans' windows and, since the windowed
+    join became a trace fragment of its own, each of its live probe
+    windows."""
     from pixie_tpu_torch.config import clear_flag, set_flag
     from pixie_tpu_torch.ops.dense_fold import dense_fold
     from pixie_tpu_torch.ops.hist_fold import hist_fold
@@ -1557,9 +1574,12 @@ def join_query(eng, query: str, check, max_rows: int = 10_000,
                     "hist_fold": hist_fold.launches / turns}
         jd = eng.last_join_decision
         st = eng.last_stats
-        total, in_driver, sites = sync_sites(
-            run, fold_fns=("_join_device", "_join_device_windowed"))
-        busy = busy_share(run)
+        total, in_driver, sites, busy = None, None, {}, {}
+        if traced:
+            total, in_driver, sites = sync_sites(
+                run, fold_fns=("_join_device", "_join_device_windowed"))
+            sites = dict(sites.most_common(8))
+            busy = busy_share(run)
     finally:
         if strategy is not None:
             clear_flag("join_strategy")
@@ -1572,8 +1592,9 @@ def join_query(eng, query: str, check, max_rows: int = 10_000,
         "windows_folded": st.windows,
         "syncs": total, "probe_windows": windows,
         "driver_syncs": in_driver,
-        "syncs_per_probe_window": in_driver / windows if windows else None,
-        "sync_sites": dict(sites.most_common(8)),
+        "syncs_per_probe_window": (
+            in_driver / windows if windows and traced else None),
+        "sync_sites": sites,
         **busy, "checked": True,
     }
 
@@ -1948,9 +1969,11 @@ def phase_joins(device) -> None:
         if shape == "select":
             assert d["skipped_windows"] > 0, d
         if shape == "skew":
-            # auto routes it radix (asserted above); one timed turn each.
+            # auto routes it radix (asserted above); one timed turn each,
+            # untraced (the auto route's syncs and idle share are above).
             for forced in ("single", "sorted"):
-                rec = join_query(eng, query, check, strategy=forced, turns=1)
+                rec = join_query(eng, query, check, strategy=forced, turns=1,
+                                 traced=False)
                 print(json.dumps({"phase": "joins", "shape": shape,
                                   "forced": forced, **rec}))
                 assert rec["decision"]["strategy"] == forced, rec["decision"]
@@ -2263,7 +2286,8 @@ def bounds_against_observation(eng, pxl: str, peak_bytes: int) -> dict:
 
 
 # -- the shipped library ----------------------------------------------------------
-LIB_HTTP_ROWS = 1 << 22  # http_events' 512 MiB budget would hold 7.9M rows
+LIB_HTTP_ROWS = 1 << 21  # cut from 2^22 for the time limit; http_events'
+# 512 MiB budget would hold 7.9M rows
 LIB_TELEMETRY_ROWS = 4096
 LIB_VOCAB = 3000  # _seed_all_tables' n: its per-row strings take this many values
 LIB_APPEND_ROWS = 1 << 20
@@ -5161,6 +5185,404 @@ def phase_device_result(eng, expect: Expect) -> None:
     }))
 
 
+# -- the concurrency phase: queries from several threads on one engine ---------
+CC_THREADS = (2, 4)
+CC_TURNS = 3
+CC_SOLO_TURNS = 3
+CC_INGEST_BASE = 1 << 20
+CC_INGEST_ROWS = 1 << 17
+CC_INGEST_QUERIES = 10
+CC_SWEEP = (1, 2, 4)
+CC_SWEEP_PER_WORKER = 5
+CC_SOLO_LAUNCHES = {
+    "px/http_stats": {"dense_fold": 0, "hist_fold": 0},
+    "http_stats_float64": {"dense_fold": ROWS // WINDOW, "hist_fold": 0},
+    "px/service_stats": {"dense_fold": 0, "hist_fold": 2 * ROWS // WINDOW},
+}
+CC_COUNT = """import px
+df = px.DataFrame(table='http_events')
+df = df.groupby('service').agg(n=('latency_ns', px.count))
+px.display(df)
+"""
+CC_SWEEP_QUERY = """import px
+df = px.DataFrame(table='http_events')
+df = df.groupby('service').agg(n=('latency_ns', px.count),
+                               m=('latency_ns', px.mean))
+px.display(df)
+"""
+
+
+def cc_thread_launches() -> dict:
+    """Each kernel's launches so far by the calling thread (the counters
+    are kept per thread name, and a query folds on its caller's
+    thread)."""
+    import threading
+
+    from pixie_tpu_torch.ops.dense_fold import dense_fold
+    from pixie_tpu_torch.ops.hist_fold import hist_fold
+
+    name = threading.current_thread().name
+    return {"dense_fold": dense_fold.launches_by_thread.get(name, 0),
+            "hist_fold": hist_fold.launches_by_thread.get(name, 0)}
+
+
+def cc_query(eng, name: str, **kw):
+    """(output, seconds, this query's launches) of one query run on the
+    calling thread."""
+    before = cc_thread_launches()
+    t0 = time.perf_counter()
+    out = eng.execute_query(query_text(name), **kw)["output"]
+    secs = time.perf_counter() - t0
+    after = cc_thread_launches()
+    return out, secs, {k: after[k] - before[k] for k in after}
+
+
+def cc_rendezvous(eng, n: int):
+    """Hold the first window of the first ``n`` scans on ``eng`` until
+    all ``n`` have reached it, so the queries that own them are in
+    flight at once. Returns the undo."""
+    import threading
+
+    orig = eng._staged_windows
+    barrier = threading.Barrier(n, timeout=60.0)
+    lock = threading.Lock()
+    calls = [0]
+
+    def synced(stream, stats, cancel):
+        with lock:
+            calls[0] += 1
+            first = calls[0] <= n
+        if first:
+            barrier.wait()
+        yield from orig(stream, stats, cancel)
+
+    eng._staged_windows = synced
+    return lambda: eng.__dict__.pop("_staged_windows", None)
+
+
+def cc_threads(n: int, work, tag: str) -> float:
+    """Run ``work(i)`` on ``n`` named threads; the wall seconds. Any
+    exception on a thread fails the phase."""
+    import threading
+
+    errors: list = []
+
+    def run(i):
+        try:
+            work(i)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(f"thread {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"{tag}-{i}")
+               for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    assert not errors, errors
+    return wall
+
+
+def cc_check_traces(eng, n_queries: int, what: str) -> list:
+    """The last ``n_queries`` traces: each finished ok over every row of
+    the replay, and none is left in flight."""
+    traces = eng.tracer.recent()[:n_queries]
+    assert len(traces) == n_queries, (what, len(traces))
+    bad = [(t["status"], t["usage"]["rows_in"]) for t in traces
+           if t["status"] != "ok" or t["usage"]["rows_in"] != ROWS]
+    assert not bad, (what, bad)
+    assert not eng.tracer.in_flight(), (what, eng.tracer.in_flight())
+    return traces
+
+
+def device_busy_s(prof) -> float:
+    """Seconds in which the card ran at least one kernel, copy or set
+    recorded by ``prof``: the union of their device intervals, so work
+    that overlaps (several queries' streams, the stager's copy stream)
+    counts once."""
+    from torch.autograd import DeviceType
+
+    # The profiler's raw records: its event tree (``prof.events()``) costs
+    # seconds to build for a turn of many queries.
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy_ns, lo, hi = 0, None, None
+    for start, end in spans:
+        if hi is None or start > hi:
+            if hi is not None:
+                busy_ns += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    if hi is not None:
+        busy_ns += hi - lo
+    return busy_ns / 1e9
+
+
+def cc_turn(eng, solo: dict, n: int) -> dict:
+    """``n`` threads on ``eng``, each running the three scripts, rotated
+    per thread, for CC_TURNS turns under torch.profiler: every answer
+    against the serial one, every query's launches against the solo
+    query's, ``max_inflight`` equal to ``n``, each trace over all
+    16,777,216 rows; the wall and the card's idle share over it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    records: list = []
+
+    def work(i):
+        for turn in range(CC_TURNS):
+            for j in range(len(AGG_SCRIPTS)):
+                name = AGG_SCRIPTS[(i + j + turn) % len(AGG_SCRIPTS)]
+                records.append((name, *cc_query(eng, name)))
+
+    eng.max_inflight = 0
+    undo = cc_rendezvous(eng, n)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cc_threads(n, work, f"cc{n}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        undo()
+    busy_s = device_busy_s(prof)
+    assert 0.0 < busy_s <= wall, (busy_s, wall)
+    n_queries = n * CC_TURNS * len(AGG_SCRIPTS)
+    assert len(records) == n_queries, len(records)
+    for name, out, _secs, launches in records:
+        sv_check(f"concurrency {n} threads {name}", name, out,
+                 solo[name]["out"])
+        assert launches == solo[name]["launches"], (name, launches)
+    assert eng.max_inflight == n, (n, eng.max_inflight)
+    cc_check_traces(eng, n_queries, f"{n} threads")
+    serial_s = n * CC_TURNS * sum(solo[s]["secs"] for s in AGG_SCRIPTS)
+    return {"threads": n, "queries": n_queries,
+            "wall_s": wall, "serial_equivalent_s": serial_s,
+            "wall_over_serial": wall / serial_s,
+            "max_inflight": eng.max_inflight,
+            "query_secs": {s: float(np.median([r[2] for r in records
+                                               if r[0] == s]))
+                           for s in AGG_SCRIPTS},
+            "launches_per_query": {s: solo[s]["launches"]
+                                   for s in AGG_SCRIPTS},
+            "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall,
+            "checked": True}
+
+
+def cc_cancel(eng, solo: dict) -> dict:
+    """Two concurrent px/service_stats queries (each window held 20 ms);
+    once both have a window, one is cancelled: it raises QueryCancelled
+    and its trace ends ``cancelled``, and the other's answer and launches
+    equal the serial ones."""
+    import threading
+
+    from pixie_tpu_torch.exec.stream import QueryCancelled
+
+    name = "px/service_stats"
+    cancel, both = threading.Event(), threading.Event()
+    orig = eng._staged_windows
+    lock = threading.Lock()
+    scans = [0]
+    out: dict = {}
+
+    def slow(stream, stats, cancel_):
+        first = True
+        for w in orig(stream, stats, cancel_):
+            if first:
+                first = False
+                with lock:
+                    scans[0] += 1
+                    if scans[0] == 2:
+                        both.set()
+            time.sleep(0.02)
+            yield w
+
+    def work(i):
+        if i == 0:
+            try:
+                eng.execute_query(query_text(name), cancel=cancel)
+                out["cancelled"] = "completed"
+            except QueryCancelled:
+                out["cancelled"] = "cancelled"
+        elif i == 1:
+            out["free"] = cc_query(eng, name)
+        else:
+            assert both.wait(60.0), "the two queries never overlapped"
+            cancel.set()
+
+    eng._staged_windows = slow
+    try:
+        cc_threads(3, work, "cc-cancel")
+    finally:
+        eng.__dict__.pop("_staged_windows", None)
+    assert out["cancelled"] == "cancelled", out["cancelled"]
+    free, secs, launches = out["free"]
+    sv_check("concurrency cancel", name, free, solo[name]["out"])
+    assert launches == solo[name]["launches"], launches
+    status = [t["status"] for t in eng.tracer.recent()[:2]]
+    assert sorted(status) == ["cancelled", "ok"], status
+    assert not eng.tracer.in_flight()
+    return {"cancelled": out["cancelled"], "free_secs": secs,
+            "statuses": status, "checked": True}
+
+
+def cc_residency_off(eng, solo: dict) -> dict:
+    """Two threads with residency off: every window of both queries
+    stages through the card's one ``_Stager`` (its lock over the pinned
+    copy, its copy stream); answers and launches as the serial ones,
+    each query's staging seconds."""
+    from pixie_tpu_torch.config import override_flag
+
+    records: list = []
+
+    def work(i):
+        for j in range(len(AGG_SCRIPTS)):
+            name = AGG_SCRIPTS[(i + j) % len(AGG_SCRIPTS)]
+            records.append((name, *cc_query(eng, name)))
+
+    eng.max_inflight = 0
+    undo = cc_rendezvous(eng, 2)
+    try:
+        with override_flag("device_residency", False):
+            wall = cc_threads(2, work, "cc-staged")
+    finally:
+        undo()
+    for name, out, _secs, launches in records:
+        sv_check(f"concurrency residency off {name}", name, out,
+                 solo[name]["out"])
+        assert launches == solo[name]["launches"], (name, launches)
+    assert eng.max_inflight == 2, eng.max_inflight
+    traces = cc_check_traces(eng, len(records), "residency off")
+    by_text = {query_text(s)[:200]: s for s in AGG_SCRIPTS}  # as traced
+    per_query = [{
+        "script": by_text.get(t["query"], t["query"][:40]),
+        "stage_secs": t["pipeline"]["stage_secs"],
+        "stall_secs": t["pipeline"]["stall_secs"],
+        "bytes_staged": t["usage"]["bytes_staged"],
+        "duration_ms": t["duration_ms"],
+    } for t in traces]
+    assert all(q["bytes_staged"] > 0 for q in per_query), per_query
+    return {"wall_s": wall, "queries": per_query, "checked": True}
+
+
+def cc_ingest(replay, device) -> dict:
+    """Appends of 2^17 rows race 10 count queries on an engine on the
+    card: each count is no lower than the one before, and the last
+    query after the appends counts every row."""
+    import threading
+
+    from pixie_tpu_torch import Engine
+
+    ing = Engine(window_rows=WINDOW, device=device)
+    ing.create_table("http_events")
+    append_replay(ing, tuple(a[:CC_INGEST_BASE] for a in replay), WINDOW)
+    ing.execute_query(CC_COUNT)
+    stop = threading.Event()
+    appended = [CC_INGEST_BASE]
+
+    def ingest():
+        lo = CC_INGEST_BASE
+        while not stop.is_set() and lo + CC_INGEST_ROWS <= ROWS:
+            hi = lo + CC_INGEST_ROWS
+            append_replay(ing, tuple(a[lo:hi] for a in replay), WINDOW,
+                          start=lo)
+            appended[0] = lo = hi
+
+    t = threading.Thread(target=ingest, name="cc-ingest")
+    counts = []
+    t0 = time.perf_counter()
+    t.start()
+    try:
+        for _ in range(CC_INGEST_QUERIES):
+            out = ing.execute_query(CC_COUNT)["output"].to_pydict()
+            counts.append(int(np.sum(out["n"])))
+            time.sleep(0.05)  # an append's time: the appends interleave
+    finally:
+        stop.set()
+        t.join()
+    secs = time.perf_counter() - t0
+    assert all(b >= a for a, b in zip(counts, counts[1:])), counts
+    assert counts[0] >= CC_INGEST_BASE, counts
+    final = int(np.sum(ing.execute_query(CC_COUNT)["output"]
+                       .to_pydict()["n"]))
+    assert final == appended[0], (final, appended[0])
+    torn = sum((c - CC_INGEST_BASE) % CC_INGEST_ROWS != 0 for c in counts)
+    return {"counts": counts, "final": final, "appends": (
+        appended[0] - CC_INGEST_BASE) // CC_INGEST_ROWS,
+        "counts_inside_an_append": torn, "secs": secs, "checked": True}
+
+
+def cc_sweep(device) -> dict:
+    """The load tester's concurrency sweep over its local executor on
+    ``device``: no errors, the serving histogram's delta equal to the
+    queries sent, two queries in flight at once at least. A pass or a
+    failure only: the executor's own 200,000-row table and a few requests
+    per client give no throughput or tail worth printing."""
+    from pixie_tpu_torch.services.load_tester import (
+        local_executor, run_concurrency_sweep)
+
+    execute = local_executor(device=device)
+    reports = run_concurrency_sweep(
+        execute, CC_SWEEP_QUERY, concurrencies=CC_SWEEP,
+        per_worker=CC_SWEEP_PER_WORKER)
+    counts = {}
+    for n, rep in sorted(reports.items()):
+        d = rep.to_dict()
+        assert rep.errors == 0, d
+        assert d.get("hist_count", 0) == n * CC_SWEEP_PER_WORKER, d
+        counts[n] = d["hist_count"]
+    assert execute.engine.max_inflight >= 2, execute.engine.max_inflight
+    return {"errors": 0, "hist_count": counts,
+            "max_inflight": execute.engine.max_inflight, "checked": True}
+
+
+def phase_concurrency(eng, replay, expect: Expect, device) -> None:
+    """Queries from several threads on the main engine over the resident
+    16M-row replay: the serial baseline, 2 and 4 threads running the
+    three scripts mixed (timed under torch.profiler), a cancel, a turn
+    with residency off, appends racing queries (on an engine of its own)
+    and the load tester's sweep. Each check prints its own seconds."""
+    import gc
+
+    t_phase = time.perf_counter()
+
+    def report(check: str, step) -> None:
+        t0 = time.perf_counter()
+        rec = step()
+        print(json.dumps({"phase": "concurrency", "check": check, **rec,
+                          "check_secs": time.perf_counter() - t0}))
+
+    solo: dict = {}
+
+    def run_solo() -> dict:
+        for name in AGG_SCRIPTS:
+            eng.execute_query(query_text(name))
+            runs = [cc_query(eng, name) for _ in range(CC_SOLO_TURNS)]
+            out, _secs, launches = runs[-1]
+            expect.check(name, out)
+            assert launches == CC_SOLO_LAUNCHES[name], (name, launches)
+            solo[name] = {"out": out, "launches": launches,
+                          "secs": float(np.median([r[1] for r in runs]))}
+        return {"scripts": {s: {"secs": v["secs"], "launches": v["launches"]}
+                            for s, v in solo.items()}, "checked": True}
+
+    report("solo", run_solo)
+    for n in CC_THREADS:
+        report("turn", lambda: cc_turn(eng, solo, n))
+    report("cancel", lambda: cc_cancel(eng, solo))
+    report("residency_off", lambda: cc_residency_off(eng, solo))
+    report("ingest", lambda: cc_ingest(replay, device))
+    gc.collect()
+    report("load_tester_sweep", lambda: cc_sweep(device))
+    print(json.dumps({"phase": "concurrency", "check": "seconds",
+                      "secs": time.perf_counter() - t_phase}))
+
+
 # -- the otel phase: px.export and the OTLP trace push on the card -------------
 OT_SPAN_BELOW = 13_000  # latency_ns under this: about 2,000 of 2^24 rows
 OT_EXPORT = """
@@ -5601,7 +6023,8 @@ def _pid_alive(pid: int) -> bool:
 
 
 TP_PEMS = 4
-TP_CALLS = 1 << 19  # handler calls per PEM: 2^21 tracepoint rows in all
+TP_CALLS = 1 << 18  # handler calls per PEM (2^19 before, cut for the time
+# limit): 2^20 tracepoint rows in all
 TP_POLL = 1 << 15  # calls between drains: half the connector's 2^16-row ring
 TP_SERVICES = 32
 TP_STATUSES = (200,) * 92 + (404,) * 4 + (500,) * 3 + (503,)
@@ -6205,6 +6628,14 @@ def main() -> int:
     for k in kernels:
         k["launches_device_result"] = device_result[k["name"]]
     elapsed("window path and device results")
+    # Several threads' queries on the same engine and resident windows.
+    _zero_launches()
+    phase_concurrency(eng, replay, expect, device)
+    concurrency = _launch_counts()
+    for k in kernels:
+        k["launches_concurrency"] = concurrency[k["name"]]
+    gc.collect()
+    elapsed("concurrency")
     # px.export and the OTLP trace push over the same resident windows.
     otel = phase_otel(eng, expect)
     for k in kernels:

@@ -314,7 +314,11 @@ class Engine:
         # runs on its caller's thread). The last_* snapshots below are
         # the last finished query's, last-writer-wins under concurrency.
         self._tls = threading.local()
+        # Guards the last_* snapshots and the in-flight counters (a leaf
+        # lock: nothing blocks under it).
         self._state_lock = threading.Lock()
+        self._inflight = 0
+        self.max_inflight = 0  # high-water count of concurrent queries
         # Engine-lifetime pipeline totals (exported by
         # services.observability.engine_collector).
         self.pipeline_totals = {
@@ -690,6 +694,9 @@ class Engine:
         self._tls.scratch = scratch
         tm_token = threadmap.bind(trace=trace, phase="host")
         t0 = time.perf_counter()
+        with self._state_lock:
+            self._inflight += 1
+            self.max_inflight = max(self.max_inflight, self._inflight)
         try:
             return self._execute_plan(plan, stats, cancel, bridge_inputs,
                                       materialize)
@@ -701,10 +708,14 @@ class Engine:
             jd = scratch.join_decision
             if jd is not None:
                 trace.usage.retries += int(getattr(jd, "retries", 0))
+                trace.usage.skipped_windows += int(
+                    getattr(jd, "skipped_windows", 0)
+                )
             peak = self.device_memory.query_end(mem_token)
             if peak is not None:
                 trace.usage.device_peak_bytes = peak
             with self._state_lock:
+                self._inflight -= 1
                 self.last_stats = stats
                 self._last_join_decision = jd
                 self._last_resource_report = report

@@ -613,6 +613,9 @@ def _join_device_windowed(left: HostBatch, right: HostBatch, op: JoinOp,
     device = _engine_device(engine)
     if decision is None:
         decision = JoinDecision(strategy="sorted", window_rows=window_rows)
+    # The join is a fragment of the query's trace, as in the JAX engine:
+    # its live probe windows and rows, its stage times and its output.
+    fstats = qstats.new_fragment([op]) if qstats is not None else None
 
     l_remap, r_remap, key_dicts = _align_join_dicts(left, right, op)
     lkeys, rkeys = _packed_key_ids(left, op.left_on, l_remap,
@@ -709,6 +712,8 @@ def _join_device_windowed(left: HostBatch, right: HostBatch, op: JoinOp,
                     [pkeys[off:off + m], ones[:m]], [sentinel, False],
                     [torch.int64, torch.bool], wcap, device,
                 )
+            if qstats is not None:
+                qstats.rows += m
             yield off, pk_dev, pv_dev, event
 
     probe_side = JoinSideStats(
@@ -761,6 +766,8 @@ def _join_device_windowed(left: HostBatch, right: HostBatch, op: JoinOp,
                     # keep the larger capacity for every later window.
                     capacity *= 2
                     _count_retry(decision, qstats)
+            if qstats is not None:
+                qstats.windows += 1
             parts[off] = (
                 p_idx + off, p_take,
                 order[np.clip(b_idx, 0, max(rb - 1, 0))], b_take,
@@ -799,11 +806,14 @@ def _join_device_windowed(left: HostBatch, right: HostBatch, op: JoinOp,
     l_idx, l_take = (b_all if swap else p_all)
     r_idx, r_take = (p_all if swap else b_all)
     out_rel, src = _join_out_schema(left, right, op)
-    return _assemble_join(
+    out = _assemble_join(
         left, right, op, out_rel, src,
         l_idx, l_take, r_idx, r_take,
         r_remap=r_remap, key_dicts=key_dicts,
     )
+    if fstats is not None:
+        fstats.rows_out = out.length
+    return out
 
 
 def _timer(qstats, stage: str):

@@ -75,6 +75,7 @@ class MaterializedView:
                  max_output_rows: int = 10_000):
         from .streaming import stream_query
 
+        self.script = script
         self.sha = script_sha(script)
         self.now_ns = int(now_ns) or time.time_ns()
         self.max_output_rows = int(max_output_rows)

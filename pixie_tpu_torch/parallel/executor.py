@@ -225,6 +225,12 @@ class DistributedEngine(Engine):
         return getattr(self._tls, "mesh", None) or self._base_mesh
 
     @property
+    def n_devices(self) -> int:
+        """Slots of the executing mesh (a slot is a virtual PEM, so two
+        may share a card)."""
+        return int(self.mesh.devices.size)
+
+    @property
     def device_residency(self) -> bool:
         """Windows staged at append time are read as they are on the
         base mesh. A degraded-mesh query stages each window instead, as

@@ -70,6 +70,21 @@ out = eng.execute_query(
     "px.display(df.groupby('k').agg(n=('v', px.count), s=('v', px.sum)))"
 )["output"].to_pydict()
 assert sorted(out["n"].tolist()) == [1000, 1000, 1000], out
+import threading
+conc, barrier = [], threading.Barrier(2, timeout=30)
+def run():
+    barrier.wait()
+    conc.append(eng.execute_query(
+        "import px\\ndf = px.DataFrame(table='t')\\n"
+        "px.display(df.groupby('k').agg(n=('v', px.count)))"
+    )["output"].to_pydict()["n"].tolist())
+threads = [threading.Thread(target=run) for _ in range(2)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+assert [sorted(n) for n in conc] == [[1000] * 3] * 2, conc
+assert eng.max_inflight >= 1 and not eng.tracer.in_flight()
 eng = Engine(window_rows=1024, device="cpu", pipeline_depth=2)
 for lo in range(0, 3072, 1024):  # one zone-map entry per window
     r = np.arange(lo, lo + 1024)

@@ -382,6 +382,27 @@ def test_zone_skipped_windows(monkeypatch, strategy, how):
     assert d.skipped_windows > 0
 
 
+@pytest.mark.parametrize("strategy,how", [
+    ("sorted", "left"), ("radix", "left"), ("sorted", "inner"),
+])
+def test_zone_skipped_windows_on_the_trace(monkeypatch, strategy, how):
+    """The windowed join's trace usage equals the JAX engine's: the join
+    is a fragment of the query's trace (its probe windows and rows, its
+    output rows) and its zone-skipped probe windows count, as do its
+    retries (ROADMAP.md §C, C9)."""
+    tables = _int_tables(np.arange(1000), np.arange(950, 980))
+    engines = _engine_pair(*tables)
+    _run_pair(monkeypatch, *tables, how, strategy, engines=engines)
+    keys = ("rows_in", "rows_out", "windows", "retries", "skipped_windows")
+    jax_usage, usage = (
+        {k: getattr(e.tracer.last().usage, k) for k in keys}
+        for e in engines
+    )
+    assert usage == jax_usage
+    assert usage["skipped_windows"] == engines[1].last_join_decision \
+        .skipped_windows > 0
+
+
 @pytest.mark.parametrize("strategy", ["single", "sorted", "radix"])
 def test_forced_overflow_retry(monkeypatch, strategy):
     """A capacity estimate far too low retries doubled, as many times as

@@ -252,11 +252,26 @@ SEQ_QUERY = (
 
 
 def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A free port below the kernel's ephemeral range. The roles bind it
+    seconds after this returns; a port from ``bind(0)`` lies in that
+    range, where any test's outgoing connection may take it meanwhile."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = np.random.default_rng()
+    for _ in range(200):
+        port = int(rng.integers(max(1024, low - 12000), low))
+        s = socket.socket()
+        try:
+            s.bind(("0.0.0.0", port))
+            return port
+        except OSError:
+            continue
+        finally:
+            s.close()
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def _children(pid: int) -> dict:
@@ -301,10 +316,17 @@ def test_deploy_operator_default_spec_restarts_a_killed_pem(tmp_path):
         env=env, cwd=str(tmp_path), stdout=log, stderr=subprocess.STDOUT,
     )
     seen = set()
+    t0 = time.monotonic()
+    phases: dict = {}  # phase -> seconds since the operator started
+
+    def log_tail() -> str:
+        log.flush()
+        return (tmp_path / "operator.log").read_text()[-2000:]
 
     def answered() -> bool:
-        assert op.poll() is None, "operator exited"
-        assert time.monotonic() < deadline, "the cluster never answered"
+        assert op.poll() is None, f"operator exited {phases}\n{log_tail()}"
+        assert time.monotonic() < deadline, (
+            f"the cluster never answered {phases}\n{log_tail()}")
         try:
             with Client("127.0.0.1", port, connect_timeout_s=1.0) as c:
                 out = c.execute_script(SEQ_QUERY, timeout_s=10)["output"]
@@ -315,21 +337,26 @@ def test_deploy_operator_default_spec_restarts_a_killed_pem(tmp_path):
 
     try:
         assert _wait(lambda: set(_children(op.pid).values()) == {
-            "broker", "pem", "kelvin"}, timeout_s=30.0)
+            "broker", "pem", "kelvin"}, timeout_s=30.0), log_tail()
+        phases["children"] = time.monotonic() - t0
         seen |= set(_children(op.pid))
         while not answered():
             pass
+        phases["answered"] = time.monotonic() - t0
         (pem,) = [p for p, r in _children(op.pid).items() if r == "pem"]
         os.kill(pem, signal.SIGKILL)
         t_kill = time.monotonic()
         assert _wait(lambda: "pem" in _children(op.pid).values()
-                     and pem not in _children(op.pid), timeout_s=10.0)
+                     and pem not in _children(op.pid), timeout_s=10.0), (
+            f"no PEM restarted {phases}\n{log_tail()}")
         # Restarted within the first backoff (0.5 s) and a reconcile
         # interval (1 s), with room for a loaded host.
-        assert time.monotonic() - t_kill < 5.0
+        phases["restart_s"] = time.monotonic() - t_kill
+        assert phases["restart_s"] < 5.0, phases
         seen |= set(_children(op.pid))
         while not answered():
             pass
+        phases["answered_again"] = time.monotonic() - t0
     finally:
         op.send_signal(signal.SIGTERM)
         try:
@@ -343,7 +370,7 @@ def test_deploy_operator_default_spec_restarts_a_killed_pem(tmp_path):
     assert op.returncode == 0, text[-2000:]
     assert "[operator] reconciling roles: {'broker': 1, 'pem': 1, " \
            "'kelvin': 1}" in text
-    assert len(seen) == 4  # three roles and the restarted PEM
+    assert len(seen) == 4, (seen, phases)  # three roles, the new PEM
     assert all(_gone(p) for p in seen), [p for p in seen if not _gone(p)]
 
 

@@ -540,6 +540,18 @@ def test_service_stats_over_the_mesh(engines):
         np.testing.assert_allclose(p50, np.quantile(lat, 0.5), rtol=0.05)
 
 
+@pytest.mark.parametrize("n_agents,n_kelvin", [(8, 1), (4, 2), (3, 1)])
+def test_n_devices_matches_jax(n_agents, n_kelvin):
+    """``DistributedEngine.n_devices`` counts the mesh's slots, as the
+    JAX engine's does."""
+    slots = n_agents * n_kelvin
+    jax_eng = JaxDistributedEngine(
+        window_rows=W, mesh=jax_agent_mesh(n_agents, n_kelvin))
+    eng = DistributedEngine(
+        window_rows=W, mesh=_cpu_mesh(n_agents, n_kelvin, slots))
+    assert eng.n_devices == jax_eng.n_devices == slots
+
+
 def test_agent_mesh_refuses_too_few_devices():
     with pytest.raises(ValueError) as jerr:
         jax_agent_mesh(16)

@@ -8,8 +8,11 @@ found these without a counterpart in the port: the dtype helpers
 ``with_cols``, ``with_valid``, ``select``, ``to_host``),
 ``FragmentStats.timed``, ``ProgramRegistry.clear``,
 ``Engine.last_pipeline``, the result cache's metrics (``ResultCache``'s
-``registry``) and ``digest_update(num_groups=)``. Values are compared
-exactly, t-digest means at rtol 1e-5 (f32 sums in another order).
+``registry``) and ``digest_update(num_groups=)``; and from a sweep of
+public instance attributes, ``MaterializedView.script`` (with
+``DistributedEngine.n_devices`` in ``tests/test_torch_parallel.py``).
+Values are compared exactly, t-digest means at rtol 1e-5 (f32 sums in
+another order).
 """
 
 from __future__ import annotations
@@ -204,3 +207,22 @@ def test_digest_update_num_groups_matches_jax(num_groups):
         num_groups=num_groups)
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-5)
+
+
+def test_materialized_view_script_matches_jax():
+    from pixie_tpu.exec.views import MaterializedView as JaxView
+    from pixie_tpu_torch.exec.views import MaterializedView
+
+    jax_eng, eng = JaxEngine(window_rows=W), Engine(window_rows=W,
+                                                    device="cpu")
+    views = []
+    for e, cls in ((jax_eng, JaxView), (eng, MaterializedView)):
+        e.append_data("t", {"time_": np.arange(50, dtype=np.int64),
+                            "k": np.arange(50) % 3, "v": np.arange(50)})
+        views.append(cls(e, AGG_Q))
+    try:
+        assert views[1].script == views[0].script == AGG_Q
+        assert views[1].sha == views[0].sha
+    finally:
+        for v in views:
+            v.close()

@@ -445,27 +445,38 @@ class TestObservedFloor:
             AgentTracker, KelvinAgent, MessageBus, PEMAgent, QueryBroker)
         from pixie_tpu_torch.services.query_broker import AdmissionError
 
+        def ready() -> bool:
+            # The PEM's own table and a registered Kelvin: the agents'
+            # self-telemetry tables fill the schemas' union before the
+            # PEM's http_events arrives.
+            st = tracker.distributed_state()
+            return bool(st.pems_with_table("http_events") and st.kelvins)
+
         bus = MessageBus()
         tracker = AgentTracker(bus, expiry_s=60.0, check_interval_s=60.0)
         pem = PEMAgent(bus, "pem-0", engine=Engine(device="cpu"),
-                       heartbeat_interval_s=30.0).start()
+                       heartbeat_interval_s=30.0)
         kelvin = KelvinAgent(bus, "kelvin-0", engine=Engine(device="cpu"),
-                             heartbeat_interval_s=30.0).start()
+                             heartbeat_interval_s=30.0)
         broker = None
         try:
             with override_flag("ingest_sketches", False), \
                     override_flag("device_residency", False):
                 n = 3000
+                # The rows land before the PEM starts, so its first
+                # registration already names the table.
                 pem.append_data("http_events", {
                     "time_": np.arange(n, dtype=np.int64),
                     "latency_ns": np.arange(n, dtype=np.int64),
                     "resp_status": np.full(n, 200, dtype=np.int64),
                     "service": [f"s-{i % 3}" for i in range(n)],
                 })
-                pem._register()
-                deadline = time.time() + 5
-                while time.time() < deadline and not tracker.schemas():
+                pem.start()
+                kelvin.start()
+                deadline = time.monotonic() + 10
+                while time.monotonic() < deadline and not ready():
                     time.sleep(0.01)
+                assert ready(), tracker.agents_info()
                 broker = QueryBroker(bus, tracker)
                 q = (
                     "import px\n"
