@@ -85,7 +85,9 @@ class FragmentStats:
         return getattr(compiled, name)
 
     def add(self, stage: str, seconds: float, rows: int = 0,
-            nbytes: int = 0) -> None:
+            nbytes: int = 0, start_ns: int | None = None) -> None:
+        """Charge ``seconds`` to ``stage``; ``start_ns`` (the interval's
+        start on ``time.time_ns``) places a traced fragment's span."""
         with self._lock:
             s = self.stages.setdefault(stage, StageStat())
             s.seconds += seconds
@@ -95,12 +97,17 @@ class FragmentStats:
 
     @contextlib.contextmanager
     def timed(self, stage: str, rows: int = 0, nbytes: int = 0):
-        """Charge the seconds spent inside the block to ``stage``."""
-        t0 = time.perf_counter()
+        """Charge the seconds spent inside the block to ``stage``, inside
+        the stage's ``region`` (``exec/trace.py``)."""
+        from .trace import STAGE_PHASES, region
+
+        t0 = time.time_ns()
         try:
-            yield self
+            with region(stage, STAGE_PHASES.get(stage, "host")):
+                yield self
         finally:
-            self.add(stage, time.perf_counter() - t0, rows, nbytes)
+            self.add(stage, (time.time_ns() - t0) / 1e9, rows, nbytes,
+                     start_ns=t0)
 
     def stage_snapshot(self) -> dict:
         """{stage: (seconds, rows, count, nbytes)} under the lock."""
@@ -217,11 +224,13 @@ class QueryStats:
             f.rows_in = self.rows - rows0
             f.windows = self.windows - windows0
 
-    def add(self, stage: str, secs: float = 0.0, nbytes: int = 0) -> None:
+    def add(self, stage: str, secs: float = 0.0, nbytes: int = 0,
+            start_ns: int | None = None) -> None:
         """Charge ``secs`` (and, for "decode", ``nbytes``) to a stage, or
         count one event ("skip", "resident", "staged"; a staged window's
         ``nbytes`` are its copied bytes). The current fragment records
-        the stage (and skips) too. Called from the pipeline's producer
+        the stage (and skips) too, its interval from ``start_ns`` (on
+        ``time.time_ns``) when given. Called from the pipeline's producer
         thread."""
         with self._lock:
             if stage in _COUNTS:
@@ -236,7 +245,7 @@ class QueryStats:
                     self.decode_bytes += int(nbytes)
             frag = self.fragments[-1] if self.fragments else None
         if frag is not None and stage not in ("resident", "staged"):
-            frag.add(stage, secs, nbytes=nbytes)
+            frag.add(stage, secs, nbytes=nbytes, start_ns=start_ns)
 
     def note_freshness_lag(self, lag_ms: float, table: str = "") -> None:
         """Keep the worst lag of the tables this query read (``table``

@@ -111,7 +111,6 @@ from ..table_store.coldstore import take_decode_meter
 from ..types.batch import HostBatch, bucket_capacity
 from ..types.relation import Relation
 from ..udf.registry import Registry, default_registry
-from . import threadmap
 from .analyze import QueryStats
 from .bridge import (
     _PendingAggBridge,
@@ -473,12 +472,24 @@ class Engine:
         stores an attribution run, a device-resident run or a pxtrace
         script; both are off while ``result_cache_mb`` and
         ``view_auto_min_runs`` are 0."""
+        # The query's trace starts here, so the compile gets its own
+        # span; execute_plan ends it. Its scope (the pixie.query region,
+        # this thread bound to the trace) closes when the trace ends.
+        trace = self.tracer.begin_query(script=query, analyze=analyze)
+        trace.open_scope()
+        try:
+            return self._execute_query_traced(
+                trace, query, now_ns, max_output_rows, analyze, cancel,
+                materialize,
+            )
+        finally:
+            trace.close_scope()
+
+    def _execute_query_traced(self, trace, query, now_ns, max_output_rows,
+                              analyze, cancel, materialize) -> dict:
         from ..planner import CompilerState, compile_pxl
         from . import result_cache as rc
 
-        # The query's trace starts here, so the compile gets its own
-        # span; execute_plan ends it.
-        trace = self.tracer.begin_query(script=query, analyze=analyze)
         # A DeviceResult is the caller's own: never shared through the
         # cache, never answered from it.
         servable = materialize and not analyze and "pxtrace" not in query
@@ -660,6 +671,7 @@ class Engine:
             trace = self.tracer.begin_query(
                 script=plan_script(plan), analyze=analyze
             )
+        trace.open_scope()
         status, error = "ok", ""
         try:
             return self._execute_plan_scoped(
@@ -692,7 +704,6 @@ class Engine:
         mem_token = self.device_memory.query_begin(self.device)
         prev = self._scratch
         self._tls.scratch = scratch
-        tm_token = threadmap.bind(trace=trace, phase="host")
         t0 = time.perf_counter()
         with self._state_lock:
             self._inflight += 1
@@ -702,7 +713,6 @@ class Engine:
                                       materialize)
         finally:
             stats.wall_s = time.perf_counter() - t0
-            threadmap.unbind(tm_token)
             self._tls.scratch = prev
             trace.pipeline = dict(stats.pipeline)
             jd = scratch.join_decision

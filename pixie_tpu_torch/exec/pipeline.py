@@ -38,7 +38,10 @@ the fold. The decode meter is thread-local (``table_store/coldstore.py``
 charges it to the query's ``decode_s`` / ``decode_bytes``.
 
 Counters: ``windows``, ``stage_secs`` (producer time spent staging) and
-``stall_secs`` (consumer time blocked waiting for a window).
+``stall_secs`` (consumer time blocked waiting for a window). Both
+intervals are ``exec/trace.py`` regions: the prefetch thread carries
+its creator's threadmap entry in phase ``stage`` (``pixie.stage``
+ranges), the consumer's waits are phase ``stall`` (``pixie.stall``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,9 @@ from __future__ import annotations
 import queue
 import threading
 import time
+
+from . import threadmap
+from .trace import region
 
 #: Poll period for interruptible blocking waits (slot acquire / queue
 #: get). Bounds how long cancellation or teardown can lag, not
@@ -124,6 +130,8 @@ class WindowPipeline:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._iterated = False
+        # The creator's attribution (its query), for the prefetch thread.
+        self._entry = threadmap.current_entry()
 
     # -- consumer side -------------------------------------------------------
     def __iter__(self):
@@ -146,7 +154,8 @@ class WindowPipeline:
             while True:
                 self._check_cancel()
                 t0 = time.perf_counter()
-                kind, val = self._get()
+                with region("stall", "stall"):
+                    kind, val = self._get()
                 self.stall_secs += time.perf_counter() - t0
                 if kind == "done":
                     return
@@ -215,6 +224,7 @@ class WindowPipeline:
 
     # -- producer side -------------------------------------------------------
     def _produce(self):
+        token = threadmap.bind(base=self._entry, phase="stage")
         try:
             while True:
                 if not self._acquire_slot():
@@ -222,7 +232,8 @@ class WindowPipeline:
                 self._check_cancel()
                 t0 = time.perf_counter()
                 try:
-                    item = next(self._gen)
+                    with region("stage", "stage"):
+                        item = next(self._gen)
                 except StopIteration:
                     self._put(("done", None))
                     return
@@ -231,6 +242,8 @@ class WindowPipeline:
                     return
         except BaseException as e:  # noqa: BLE001 - relayed, not swallowed
             self._put(("error", e))
+        finally:
+            threadmap.unbind(token)
 
     def _acquire_slot(self) -> bool:
         while not self._stop.is_set():

@@ -30,6 +30,7 @@ from ..types.dtypes import DataType, host_dtypes
 from ..types.relation import Relation
 from ..types.strings import StringDictionary
 from .plan import AggOp, MemorySourceOp
+from .trace import STAGE_PHASES, region
 
 
 class QueryError(Exception):
@@ -125,12 +126,14 @@ def _double_agg_groups(stream: _Stream) -> _Stream:
 @contextlib.contextmanager
 def _timed(stats, stage: str):
     """Stage timer: adds the host seconds spent inside it to ``stats``
-    under ``stage``."""
-    t0 = time.perf_counter()
+    under ``stage``, on the clock of the trace's spans, around the
+    stage's ``region`` (the profilers' view of the same interval)."""
+    t0 = time.time_ns()
     try:
-        yield
+        with region(stage, STAGE_PHASES.get(stage, "host")):
+            yield
     finally:
-        stats.add(stage, time.perf_counter() - t0)
+        stats.add(stage, (time.time_ns() - t0) / 1e9, start_ns=t0)
 
 
 def _block_if(stats, device: torch.device) -> None:

@@ -102,10 +102,11 @@ class _PollStats(QueryStats):
         super().__init__()
         self.trace_stats = trace_stats
 
-    def add(self, stage: str, secs: float = 0.0, nbytes: int = 0) -> None:
-        super().add(stage, secs, nbytes)
+    def add(self, stage: str, secs: float = 0.0, nbytes: int = 0,
+            start_ns: int | None = None) -> None:
+        super().add(stage, secs, nbytes, start_ns)
         if self.trace_stats is not None:
-            self.trace_stats.add(stage, secs, nbytes)
+            self.trace_stats.add(stage, secs, nbytes, start_ns)
 
     def count(self, rows: int) -> None:
         """One window of ``rows`` rows folded or emitted."""

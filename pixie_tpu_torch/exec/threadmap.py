@@ -6,16 +6,26 @@ anonymous — it says *what* code is running but not *for whom*. This
 module is the "whom": a process-wide map of thread-id → attribution
 entry, updated at the points where work changes identity:
 
-- ``Engine._execute_plan_scoped`` binds the executing ``QueryTrace``
-  (phase ``host``) around plan execution;
+- ``Engine.execute_query`` / ``Engine.execute_plan`` bind the
+  executing ``QueryTrace`` (phase ``host``) from the trace's start to
+  its end (``QueryTrace.open_scope``, the ``pixie.query`` region);
 - ``QueryBroker.execute_script`` binds the distributed trace around
-  planning + dispatch;
+  planning + dispatch (phase ``host``);
 - ``tracectx.bound`` registers the ambient context envelope, so bus
   handler threads carry at least the trace id;
-- ``WindowPipeline`` rebinds the creator's entry on its prefetch thread
-  (phase ``stage``) and brackets the consumer's waits (phase ``stall``);
-- ``TrackedProgram.__call__`` brackets device dispatch
-  (phase ``device_dispatch``).
+- the stage timers (``exec/stream.py`` ``_timed``,
+  ``FragmentStats.timed``) set the phase of each stage interval:
+  ``stage`` for ``read``/``stage``/``decode``, ``device_dispatch`` for
+  ``compute`` (the fold's launches), ``host`` for ``finalize`` and
+  ``materialize``; a span (``compile``, the broker's ``dispatch``) sets
+  ``host``;
+- ``WindowPipeline`` binds the creator's entry on its prefetch thread
+  (phase ``stage``) and sets phase ``stall`` around the consumer's
+  waits.
+
+The engine's binds, the stage timers, the spans and the pipeline go
+through ``exec/trace.py``'s ``region``, which also puts the interval
+into a running ``torch.profiler`` trace.
 
 Concurrency contract: entries are IMMUTABLE dicts and every mutation
 replaces the whole value (``_entries[tid] = new_dict``), so the sampler
@@ -28,8 +38,7 @@ a torn one).
 Binding is token-based (save/restore, like ``contextvars``): nested
 binds compose, and exceptional exits restore the outer entry.
 
-A copy of the JAX package's ``exec/threadmap.py``; the port binds
-queries, bus handlers and the broker here, and its profiler
+A copy of the JAX package's ``exec/threadmap.py``; its profiler
 (``ingest/profiler.py``) reads the attribution.
 """
 

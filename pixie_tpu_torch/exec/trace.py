@@ -8,6 +8,8 @@ A port of the JAX package's ``exec/trace.py``. Every query gets a
 Span hierarchy (one trace per ``Engine.execute_plan`` or broker query):
 
 - ``query``               root; status/script-hash/row-count attributes
+  and ``engine_self_ms`` (the wall time less compile, the query
+  thread's compute/finalize/materialize and its pipeline stall)
 - ``compile``             parse + PxL compile + plan (execute_query path)
 - ``fragment``            one per compiled fragment executed (each
   rebucket attempt is its own); attributes carry windows, rows in/out
@@ -31,10 +33,18 @@ push of finished traces to ``trace_export_url`` when that flag is set
 (``QueryTrace.to_otlp`` through ``exec/otel.py``'s
 ``OTLPHttpExporter``). A failed push counts in
 ``pixie_trace_export_errors_total`` and never fails the query.
+
+The same boundaries reach two more consumers through :class:`region`:
+the continuous profiler's thread attribution (``exec/threadmap.py``
+phases) and, while ``torch.profiler`` runs, ``pixie.<name>`` ranges in
+its trace, stamped on the clock of these spans. Garbage-collection
+pauses are charged to the query whose thread collected
+(``QueryResourceUsage.gc_ms``, ``pixie.gc`` ranges).
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import logging
@@ -44,8 +54,10 @@ import time
 from collections import deque
 from dataclasses import asdict, dataclass, field
 
+from torch.autograd import profiler as _torch_profiler
+
 from ..config import get_flag
-from . import tracectx
+from . import threadmap, tracectx
 from .analyze import FragmentStats, QueryStats, StageStat
 
 logger = logging.getLogger("pixie_tpu_torch.slow_query")
@@ -74,6 +86,106 @@ MS_BUCKETS = (0.1, 1.0, 10.0, 100.0, 1_000.0, 10_000.0, 100_000.0)
 
 def _new_id(nbytes: int) -> str:
     return os.urandom(nbytes).hex()
+
+
+#: The threadmap phase of each stage interval: staging work, the fold's
+#: launches, and host work on the results.
+STAGE_PHASES = {
+    "read": "stage", "stage": "stage", "decode": "stage",
+    "compute": "device_dispatch",
+    "finalize": "host", "materialize": "host",
+}
+
+
+class region:
+    """One engine boundary, seen by the profilers: ``with region(name,
+    phase): ...`` sets the calling thread's threadmap phase for the block
+    (with ``trace``, binds that trace too) and restores it on exit, and,
+    only while ``torch.profiler`` is on, opens the range
+    ``pixie.<name>`` around the block. Off, the profiler costs one
+    module-attribute read: ``record_function`` costs microseconds even
+    with no profiler, so it is never created unguarded.
+
+    ``open``/``close`` are the two halves for a scope that does not fit
+    one block (a query's scope closes in ``Tracer.end_query``); ``close``
+    is idempotent and acts only on the thread that opened."""
+
+    __slots__ = ("name", "phase", "trace", "_tid", "_tok", "_rf")
+
+    def __init__(self, name: str, phase: str, trace=None):
+        self.name = name
+        self.phase = phase
+        self.trace = trace
+        self._tid = None
+        self._tok = None
+        self._rf = None
+
+    def open(self) -> "region":
+        self._tid = threading.get_ident()
+        if self.trace is not None:
+            self._tok = threadmap.bind(trace=self.trace, phase=self.phase)
+        else:
+            self._tok = threadmap.set_phase(self.phase)
+        if _torch_profiler._is_profiler_enabled:
+            rf = _torch_profiler.record_function(f"pixie.{self.name}")
+            rf.__enter__()
+            self._rf = rf
+        return self
+
+    def close(self) -> None:
+        if self._tid != threading.get_ident():
+            return  # not open, already closed, or another thread's
+        self._tid = None
+        rf, self._rf = self._rf, None
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        threadmap.unbind(self._tok)
+
+    def __enter__(self) -> "region":
+        return self.open()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+
+class _GcHook:
+    """The process's one ``gc.callbacks`` hook: times each collection,
+    adds the pause to ``usage.gc_ms`` of the trace bound (threadmap) to
+    the collecting thread, if any, and under the profiler brackets the
+    collection in a ``pixie.gc`` range. Collections never overlap, so
+    one slot holds the open one."""
+
+    def __init__(self):
+        self.t0 = 0.0
+        self.rf = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self.t0 = time.perf_counter()
+            if _torch_profiler._is_profiler_enabled:
+                self.rf = _torch_profiler.record_function("pixie.gc")
+                self.rf.__enter__()
+            return
+        pause_ms = (time.perf_counter() - self.t0) * 1e3
+        rf, self.rf = self.rf, None
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        entry = threadmap.current_entry()
+        trace = entry.get("trace") if entry else None
+        if isinstance(trace, QueryTrace):
+            trace.add_gc_ms(pause_ms)
+
+
+_gc_hook: _GcHook | None = None
+_gc_hook_lock = threading.Lock()
+
+
+def _install_gc_hook() -> None:
+    global _gc_hook
+    with _gc_hook_lock:
+        if _gc_hook is None:
+            _gc_hook = _GcHook()
+            gc.callbacks.append(_gc_hook)
 
 
 @dataclass
@@ -107,6 +219,9 @@ class QueryResourceUsage:
       MAX across agents — the answer is only as fresh as the most
       behind shard. The validity predicate a result cache keyed on
       (script hash, table watermark) would check.
+    - ``gc_ms``         garbage-collection pauses on a thread bound to the
+      query (its own, its prefetch thread); adds up across agents like
+      ``stall_ms``
     """
 
     rows_in: int = 0
@@ -126,11 +241,12 @@ class QueryResourceUsage:
     # device compute rather than adding to it; compare against stall_ms
     # to see whether decode ever became the bottleneck).
     decode_ms: float = 0.0
+    gc_ms: float = 0.0
 
     def to_dict(self) -> dict:
         d = asdict(self)
         for k in ("device_ms", "compile_ms", "stall_ms",
-                  "freshness_lag_ms", "decode_ms"):
+                  "freshness_lag_ms", "decode_ms", "gc_ms"):
             d[k] = round(d[k], 3)
         return d
 
@@ -143,7 +259,8 @@ class QueryResourceUsage:
             "retries", "skipped_windows",
         ):
             setattr(self, k, getattr(self, k) + int(d.get(k, 0)))
-        for k in ("device_ms", "compile_ms", "stall_ms", "decode_ms"):
+        for k in ("device_ms", "compile_ms", "stall_ms", "decode_ms",
+                  "gc_ms"):
             setattr(self, k, getattr(self, k) + float(d.get(k, 0.0)))
         # A watermark, not a volume: agents sharing a device would
         # double-count under addition. None (a CPU engine) merges as
@@ -190,16 +307,20 @@ class Span:
 
 
 class _SpanCtx:
-    """Context manager stamping a span's start/end around a block."""
+    """Context manager stamping a span's start/end around a block, with
+    a ``pixie.<name>`` region (phase ``host``) inside the stamps."""
 
     def __init__(self, trace: "QueryTrace", name: str, parent: Span | None):
         self.span = trace._new_span(name, parent)
+        self.region = region(name, "host")
 
     def __enter__(self) -> Span:
         self.span.start_unix_nano = time.time_ns()
+        self.region.open()
         return self.span
 
     def __exit__(self, exc_type, exc, tb):
+        self.region.close()
         self.span.end_unix_nano = time.time_ns()
         if exc is not None:
             self.span.attributes["error"] = f"{type(exc).__name__}: {exc}"
@@ -221,8 +342,14 @@ class TracedFragment(FragmentStats):
         self.last_activity_ns = self.span.start_unix_nano
 
     def add(self, stage: str, seconds: float, rows: int = 0,
-            nbytes: int = 0) -> None:
+            nbytes: int = 0, start_ns: int | None = None) -> None:
+        """``start_ns`` is the interval's start on ``time.time_ns``, the
+        clock ``seconds`` was measured on (the stage timers pass it); an
+        interval without one ends now."""
         now_ns = time.time_ns()
+        if start_ns is None:
+            start_ns = now_ns - round(seconds * 1e9)
+        end_ns = start_ns + round(seconds * 1e9)
         with self._lock:
             s = self.stages.setdefault(stage, StageStat())
             s.seconds += seconds
@@ -236,16 +363,12 @@ class TracedFragment(FragmentStats):
             tracer._observe_stage(stage, seconds)
         k = self.trace.window_sample
         if k and (count - 1) % k == 0:
-            attrs = {"interval": count - 1}
-            if rows:
-                attrs["rows"] = int(rows)
             self.trace._add_span(Span(
                 name=f"window.{stage}",
                 trace_id=self.trace.trace_id,
                 parent_id=self.span.span_id,
-                start_unix_nano=now_ns - int(seconds * 1e9),
-                end_unix_nano=now_ns,
-                attributes=attrs,
+                start_unix_nano=start_ns,
+                end_unix_nano=end_ns,
             ))
 
     def finish(self, end_ns: int) -> None:
@@ -338,6 +461,11 @@ class QueryTrace:
         self.freshness: dict = {}
         self.exported = False  # OTLP push succeeded (ring-drop counting)
         self.dropped_spans = 0
+        # The query's duration less the query thread's compile, compute,
+        # finalize, materialize and stall (set at the end; None for a
+        # trace that outlives its work: a stream, a broker's wait).
+        self.engine_self_ms: float | None = None
+        self.scope: region | None = None  # open_scope's pixie.query region
         self._lock = threading.Lock()
         self.root = Span(
             "query", self.trace_id, start_unix_nano=self.start_unix_nano,
@@ -371,6 +499,24 @@ class QueryTrace:
             self.freshness[table] = max(
                 self.freshness.get(table, 0.0), lag_ms
             )
+
+    def open_scope(self) -> None:
+        """Open the query's ``pixie.query`` region on the calling thread
+        (binding this trace there, phase ``host``), once; it closes when
+        the trace ends (``Tracer.end_query``), inside the root span."""
+        if self.scope is None:
+            self.scope = region("query", "host", trace=self).open()
+
+    def close_scope(self) -> None:
+        if self.scope is not None:
+            self.scope.close()
+
+    def add_gc_ms(self, ms: float) -> None:
+        """Charge a garbage-collection pause (the process's gc hook). No
+        lock: a collection can start while this thread holds
+        ``self._lock``, and collections, so their callbacks, never
+        overlap, so nothing else adds here while a query runs."""
+        self.usage.gc_ms += ms
 
     # -- span plumbing -------------------------------------------------------
     def _new_span(self, name: str, parent: Span | None) -> Span:
@@ -416,23 +562,19 @@ class QueryTrace:
         self.root.attributes.update({
             "status": status,
             "script_hash": self.script_hash,
-            "kind": self.kind,
             "rows_in": self.rows_in,
             "rows_out": self.rows_out,
-            "bytes_staged": self.usage.bytes_staged,
-            "device_ms": round(self.usage.device_ms, 3),
-            "wire_bytes": self.usage.wire_bytes,
         })
+        if self.engine_self_ms is not None:
+            self.root.attributes["engine_self_ms"] = round(
+                self.engine_self_ms, 3
+            )
         if self.qid:
             self.root.attributes["qid"] = self.qid
         if self.agent_id:
             self.root.attributes["agent_id"] = self.agent_id
         if error:
             self.root.attributes["error"] = error
-        if self.pipeline:
-            self.root.attributes["pipeline_stall_seconds"] = round(
-                self.pipeline.get("stall_secs", 0.0), 6
-            )
         for f in self.stats.fragments:
             if isinstance(f, TracedFragment):
                 f.finish(self.end_unix_nano)
@@ -447,25 +589,40 @@ class QueryTrace:
         u.rows_out += self.rows_out
         u.windows += self.windows
         st = self.stats
+        # Seconds of the query thread's own stages, for the self time.
+        query_thread_s = 0.0
         for f in st.fragments:
             stages = f.stage_snapshot()
-            u.device_ms += (
-                stages.get("compute", (0.0,))[0]
-                + stages.get("finalize", (0.0,))[0]
-            ) * 1e3
+            compute, finalize, materialize = (
+                stages.get(k, (0.0,))[0]
+                for k in ("compute", "finalize", "materialize")
+            )
+            u.device_ms += (compute + finalize) * 1e3
+            query_thread_s += compute + finalize + materialize
         u.bytes_staged += st.staged_bytes
-        u.stall_ms += st.pipeline.get("stall_secs", 0.0) * 1e3
+        stall_s = st.pipeline.get("stall_secs", 0.0)
+        u.stall_ms += stall_s * 1e3
         # Cold-tier decode rides the stage timeline (prefetch thread);
         # skipped windows were pruned by a zone map before any staging.
         u.decode_ms += st.decode_s * 1e3
         u.skipped_windows += st.skipped_windows
+        compile_ms = 0.0
         compile_span = next(
             (s for s in self.spans if s.name == "compile"), None
         )
         if compile_span is not None and compile_span.end_unix_nano:
-            u.compile_ms += (
+            compile_ms = (
                 compile_span.end_unix_nano - compile_span.start_unix_nano
             ) / 1e6
+            u.compile_ms += compile_ms
+        # The prefetch thread's read and stage overlap these, so they are
+        # not taken off. A stream's trace spans its idle time between
+        # polls and a broker's its wait on the agents: no self time.
+        if self.kind not in ("stream", "distributed"):
+            self.engine_self_ms = (
+                self.duration_s * 1e3 - compile_ms
+                - (query_thread_s + stall_s) * 1e3
+            )
 
     def to_dict(self) -> dict:
         """The /debug/queryz row (and slow-query log body)."""
@@ -563,6 +720,7 @@ class Tracer:
         self._closed = False
         self._exporter = None
         self._exporter_url = None
+        _install_gc_hook()
 
     def add_listener(self, fn) -> None:
         """Register ``fn(trace)`` to run on every finished trace."""
@@ -638,6 +796,18 @@ class Tracer:
                     "fragments shipping partial states/rows)",
                     buckets=BYTES_BUCKETS,
                 ),
+                "gc": reg.histogram(
+                    "pixie_query_gc_seconds",
+                    "Per-query garbage-collection pauses on the query's "
+                    "threads",
+                    buckets=STAGE_BUCKETS,
+                ),
+                "engine_self": reg.histogram(
+                    "pixie_query_engine_self_seconds",
+                    "Per-query engine self time: wall time less compile, "
+                    "compute, finalize, materialize and stall",
+                    buckets=STAGE_BUCKETS,
+                ),
             }
         return self._metrics
 
@@ -680,6 +850,7 @@ class Tracer:
         with self._lock:
             if self._inflight.pop(trace.root.span_id, None) is None:
                 return  # already ended (or foreign trace)
+        trace.close_scope()
         trace._finalize(status, error)
         m = self._m()
         with self._lock:
@@ -702,6 +873,9 @@ class Tracer:
         m["wire_bytes"].observe(u.wire_bytes)
         if trace.pipeline:
             m["stall"].observe(trace.pipeline.get("stall_secs", 0.0))
+        m["gc"].observe(u.gc_ms / 1e3)
+        if trace.engine_self_ms is not None:
+            m["engine_self"].observe(trace.engine_self_ms / 1e3)
         self._slow_query_check(trace, m)
         self._export(trace, m)
         self._notify(trace)

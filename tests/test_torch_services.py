@@ -197,7 +197,8 @@ class TestClusterQuery:
         assert set(ref["merge_stats"]) <= {"kelvin-0"}
         for aid, st in got["agent_stats"].items():
             u, ju = st["usage"], ref["agent_stats"][aid]["usage"]
-            assert u.keys() == ju.keys()
+            # The port's usage also charges garbage-collection pauses.
+            assert u.keys() == ju.keys() | {"gc_ms"}
             assert u["rows_in"] == ju["rows_in"] == \
                 clusters[0].pems[int(aid[-1])].engine.tables[
                     "http_events"].num_rows

@@ -88,7 +88,9 @@ def test_spans_and_usage_match_jax(engines, query):
                                   "materialize", "decode", "skip")
     }
     gu, wu = got.usage.to_dict(), want.usage.to_dict()
-    assert gu.keys() == wu.keys()
+    # The port's usage also charges garbage-collection pauses (gc_ms),
+    # which the JAX package does not count.
+    assert gu.keys() == wu.keys() | {"gc_ms"}
     for k in ("rows_in", "rows_out", "windows", "wire_bytes", "retries",
               "skipped_windows"):
         assert gu[k] == wu[k], k
@@ -138,20 +140,23 @@ def test_plan_script_matches_jax(engines):
 
 
 def test_usage_fields_and_merge_match_jax():
+    # The JAX package's fields, in its order, then the port's gc_ms.
     assert [f.name for f in fields(QueryResourceUsage)] == [
         f.name for f in fields(JaxUsage)
-    ]
+    ] + ["gc_ms"]
     parts = [
         {"rows_in": 10, "windows": 2, "wire_bytes": 100, "device_ms": 1.5,
-         "device_peak_bytes": 7, "freshness_lag_ms": 3.0},
+         "device_peak_bytes": 7, "freshness_lag_ms": 3.0, "gc_ms": 2.0},
         {"rows_in": 5, "windows": 1, "wire_bytes": 50, "device_ms": 0.5,
-         "device_peak_bytes": 9, "freshness_lag_ms": 1.0},
+         "device_peak_bytes": 9, "freshness_lag_ms": 1.0, "gc_ms": 0.5},
     ]
     got, want = QueryResourceUsage(), JaxUsage()
     for d in parts:
         got.merge(d)
         want.merge(d)
-    assert got.to_dict() == want.to_dict()
+    merged = got.to_dict()
+    assert merged.pop("gc_ms") == 2.5  # adds up, like stall_ms
+    assert merged == want.to_dict()
     # A CPU agent reports no peak: it merges as unknown.
     got.merge({"rows_in": 1, "device_peak_bytes": None})
     assert got.rows_in == 16 and got.device_peak_bytes == 9
