@@ -5,10 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs a CUDA card and ``nvcc``, and fails (exit code other than 0)
-without them. In order it:
+(``python3 chip_smoke.py --kernels`` stops after step 1 and the kernel
+checks of step 3, under a minute on an H100.) It needs a CUDA card and
+``nvcc``, and fails (exit code other than 0) without them. In order it:
 
-1. prints the card's name and power limit, builds both CUDA kernels
+1. prints the card's name and power limit, builds the three CUDA kernels
    from ``pixie_tpu_torch/csrc/`` (one ``nvcc`` per source, in parallel)
    and prints their registers;
 2. appends a 16M-row http_events replay (bench.py's recipe, seed 7) in
@@ -18,7 +19,8 @@ without them. In order it:
 3. holds each kernel against its plain PyTorch version on the card at
    the main path's shapes (2^21-row windows; 297 dense slots padded to
    384, with and without the min, plus non-finite values; 33 groups x
-   8192 histogram bins), at the edges of their designs (a ragged n,
+   8192 histogram bins; int_fold exactly, over 15 live slots of 160 and
+   sums that wrap), at the edges of their designs (a ragged n,
    misaligned views, calls back to back, g = 2048, an all-trash window)
    and on each histogram route (3, 33 and 64 groups; 32768 groups x
    1024 bins for the group_by phase), and times kernel,
@@ -29,7 +31,8 @@ without them. In order it:
    and px/service_stats through ``Engine.execute_query`` over the
    resident windows (all 8 resident, none staged), each checked against
    numpy with bench.py's assertions, with the kernels' launch counters
-   set to 0 before each measured query and read after it;
+   set to 0 before each measured query and read after it (int_fold once
+   a window of px/http_stats);
 5. the window path's phases, each answer checked against numpy: an
    attribution run (read, stage, fold and finalize seconds); residency
    off at pipeline depth 1 and 2 (the staging the prefetch thread
@@ -640,6 +643,151 @@ def check_dense_fold(replay, device) -> dict:
     }
 
 
+#: The benchmark's dense domain for px/http_stats: (9 services + NULL) x
+#: (15 paths + NULL) slots, 15 of them live (Online Boutique's methods,
+#: path k under the service that serves it).
+INT_FOLD_G = 10 * 16
+INT_FOLD_LIVE = np.array([0, 0, 0, 1, 2, 2, 2, 3, 3, 4, 4, 5, 6, 7, 8]) * 16 \
+    + np.arange(15)
+
+
+def int_fold_inputs(replay, device, rows: int = WINDOW, start: int = 0,
+                    shape: str = "main", wrap: bool = False):
+    """One window of the INT64 http_stats fold. ``shape`` "main": the
+    benchmark's, each row's (service, path) on one of 15 live slots of
+    g = 160; "replay": this replay's own 33 x 9 = 297 slots; "wide":
+    g = 2048 (service x 64 + path x 8 + latency % 8). Rows with status
+    >= 400 go to the trash slot g. Values are latency_ns, or with
+    ``wrap`` near INT64_MAX and INT64_MIN so that sums wrap."""
+    import torch
+
+    svc, path, lat, status = (x[start:start + rows] for x in replay)
+    if shape == "main":
+        g = INT_FOLD_G
+        slots = INT_FOLD_LIVE[(svc * N_PATHS + path) % len(INT_FOLD_LIVE)]
+    elif shape == "replay":
+        g = (N_SERVICES + 1) * (N_PATHS + 1)
+        slots = svc * (N_PATHS + 1) + path
+    else:
+        g = 2048
+        slots = svc * 64 + path * 8 + lat % 8
+    slots = np.where(status < 400, slots, g)
+    info = np.iinfo(np.int64)
+    vals = np.where(lat % 2 == 1, info.max - lat, info.min + lat) if wrap else lat
+    return (torch.from_numpy(slots.astype(np.int32)).to(device),
+            torch.from_numpy(vals.astype(np.int64)).to(device), g)
+
+
+def check_int_fold(replay, device) -> dict:
+    """int_fold against its plain version, exactly: the main path's
+    window with and without the min; the edge views; sums that wrap;
+    this replay's g = 297 and g = 2048; three calls back to back on other
+    inputs and slot counts (the reused workspace and ticket); an
+    all-trash window. Then times the kernel, its plain version and the
+    UDAs' four library scatters it replaces (count, mean's sum and
+    count, max: ``_seg_count``, ``_seg_sum``, ``_seg_extreme``)."""
+    import torch
+    from pixie_tpu_torch.ops.int_fold import copies, int_fold, int_fold_reference
+    from pixie_tpu_torch.udf.builtins.math_ops import (
+        _seg_count, _seg_extreme, _seg_sum,
+    )
+
+    checked = []
+
+    def check(slots, vals, g, want_min, name, got=None):
+        if got is None:
+            got = int_fold(slots, vals, g, want_min)
+        ref = int_fold_reference(slots, vals, g, want_min)
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(got, ref)):
+            if b is None:
+                assert a is None, f"int_fold [{name}]: min without want_min"
+                continue
+            assert a.dtype == torch.int64 and torch.equal(a, b), (
+                f"int_fold [{name}] output {k}: {a.tolist()[:8]} vs "
+                f"{b.tolist()[:8]}")
+        checked.append(name)
+
+    for wrap in (False, True):
+        slots, vals, g = int_fold_inputs(replay, device, rows=WINDOW + 5,
+                                         wrap=wrap)
+        for want_min in (False, True):
+            check(slots[:WINDOW], vals[:WINDOW], g, want_min,
+                  f"main,wrap={wrap},want_min={want_min}")
+            for label, s, v in _edge_views(slots, vals, WINDOW):
+                check(s, v, g, want_min,
+                      f"{label},wrap={wrap},want_min={want_min}")
+
+    # Back to back on one stream, no synchronisation between the calls.
+    calls = [
+        int_fold_inputs(replay, device, start=WINDOW, shape="replay") + (False,),
+        int_fold_inputs(replay, device, start=2 * WINDOW, shape="wide",
+                        wrap=True) + (True,),
+        int_fold_inputs(replay, device, start=3 * WINDOW) + (True,),
+    ]
+    outs = [int_fold(s, v, g, m) for s, v, g, m in calls]
+    for i, (out, (s, v, g, m)) in enumerate(zip(outs, calls)):
+        check(s, v, g, m, f"back_to_back[{i}],g={g},want_min={m}", got=out)
+
+    main_inputs = int_fold_inputs(replay, device)
+    wide = int_fold_inputs(replay, device, shape="wide")
+    check(*wide, True, "g=2048,want_min=True")
+    check(torch.full_like(wide[0], 2048), wide[1], 2048, True, "all_trash")
+
+    def uda_chain(gids, v, g):
+        # The fragment's updates for count, mean and max before int_fold.
+        mask = gids < g
+        zeros = torch.zeros(g, dtype=torch.int64, device=v.device)
+        i64_min = torch.iinfo(torch.int64).min
+        lo = torch.full((g,), i64_min, device=v.device)
+        _seg_count(zeros, gids, mask)
+        _seg_sum(zeros, gids, mask, v)
+        _seg_count(zeros, gids, mask)
+        _seg_extreme(lo, gids, mask, v, i64_min, "amax")
+
+    shapes = []
+    for label, (slots, vals, g) in (
+            ("main", main_inputs),
+            ("replay", int_fold_inputs(replay, device, shape="replay")),
+            ("g=2048", wide)):
+        inputs = _rotating((slots, vals))
+        n = slots.numel()
+        fold = lambda s, v, g=g: int_fold(s, v, g)  # noqa: E731
+        lib = lambda s, v, g=g: uda_chain(s, v, g)  # noqa: E731
+        shapes.append({
+            "label": label, "rows": n, "slots": g, "want_min": False,
+            "copies": copies(g),
+            "ms": event_ms(fold, inputs),
+            "device_ms": profiled_device_ms(fold, inputs),
+            "library_ms": event_ms(lib, inputs),
+            "library_device_ms": profiled_device_ms(lib, inputs),
+            **_bound(n * 12 + 3 * g * 8, n),
+        })
+    main = shapes[0]
+    slots, vals, g = main_inputs
+    inputs = _rotating((slots, vals))
+    plain = lambda s, v: int_fold_reference(s, v, g)  # noqa: E731
+    return {
+        "name": "int_fold",
+        "route": "cuda",
+        "source": "pixie_tpu_torch/csrc/int_fold.cu",
+        "replaces": "none (the UDAs' index_add_/scatter_reduce_ chain)",
+        "shape": {"rows": main["rows"], "slots": g, "want_min": False},
+        "checked": checked,
+        "max_abs_err": 0,
+        "ms": main["ms"],
+        "plain_ms": event_ms(plain, inputs),
+        "library_ms": main["library_ms"],
+        "library_device_ms": main["library_device_ms"],
+        "device_ms": main["device_ms"],
+        "plain_device_ms": profiled_device_ms(plain, inputs),
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "bytes": main["bytes"],
+        "shapes": shapes,
+    }
+
+
 def hist_fold_inputs(replay, device, num_groups: int, rows: int = WINDOW,
                      start: int = 0):
     """One window of service_stats' t-digest fold, made as
@@ -894,15 +1042,18 @@ def phase_steady_state(eng, expect: Expect) -> dict:
     query, the counters read. Every window must be resident."""
     from pixie_tpu_torch.ops.dense_fold import dense_fold
     from pixie_tpu_torch.ops.hist_fold import hist_fold
+    from pixie_tpu_torch.ops.int_fold import int_fold
 
     launches = {}
     for name in AGG_SCRIPTS:
         eng.execute_query(query_text(name))
         dense_fold.launches = 0
         hist_fold.launches = 0
+        int_fold.launches = 0
         rec = run_checked(eng, name, expect)
         rec["launches"] = {"dense_fold": dense_fold.launches,
-                           "hist_fold": hist_fold.launches}
+                           "hist_fold": hist_fold.launches,
+                           "int_fold": int_fold.launches}
         launches[name] = rec["launches"]
         print(json.dumps({"phase": "steady_state", **rec}))
         windows = rec["windows"]
@@ -914,12 +1065,16 @@ def phase_steady_state(eng, expect: Expect) -> dict:
     counts = launches["http_stats_float64"]
     assert counts["dense_fold"] == ROWS // WINDOW, (
         f"dense_fold ran {counts['dense_fold']} times per query")
+    counts = launches["px/http_stats"]
+    assert counts["int_fold"] == ROWS // WINDOW, (
+        f"int_fold ran {counts['int_fold']} times per query")
     counts = launches["px/service_stats"]
     assert counts["hist_fold"] == 2 * ROWS // WINDOW, (
         f"hist_fold ran {counts['hist_fold']} times per query")
     return {
         "dense_fold": launches["http_stats_float64"]["dense_fold"],
         "hist_fold": launches["px/service_stats"]["hist_fold"],
+        "int_fold": launches["px/http_stats"]["int_fold"],
     }
 
 
@@ -6536,6 +6691,25 @@ def phase_gates(device) -> None:
     assert not any(failures.values()), failures
 
 
+def kernel_checks(replay, device) -> list:
+    """Each kernel held to its plain version and timed (``check_*``),
+    with a line per kernel and per timed shape."""
+    kernels = [check_dense_fold(replay, device), check_hist_fold(replay, device),
+               check_int_fold(replay, device)]
+    for k in kernels:
+        print(f"kernel {k['name']}: ms {k['ms']:.4f} (device "
+              f"{k['device_ms']}) plain_ms {k['plain_ms']:.4f} (device "
+              f"{k['plain_device_ms']}) library_ms {k['library_ms']:.4f} "
+              f"bound_ms {k['bound_ms']:.4f} max_abs_err {k['max_abs_err']} "
+              f"checked {len(k['checked'])} cases")
+        for sh in k["shapes"]:
+            print(f"  {k['name']} [{sh['label']}] slots {sh['slots']}: ms "
+                  f"{sh['ms']:.4f} device_ms {sh['device_ms']} bound_ms "
+                  f"{sh['bound_ms']:.4f} library_ms "
+                  f"{sh.get('library_ms', 'not measured')}")
+    return kernels
+
+
 def main() -> int:
     import gc
 
@@ -6582,6 +6756,12 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     replay = make_replay(ROWS)
+    if sys.argv[1:] == ["--kernels"]:
+        kernels = kernel_checks(replay, device)
+        print(card)  # nvidia-smi's "name, power.limit" line, as it gave it
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "kernels_only": True}))
+        return 0
     expect = Expect(replay)
     eng = load_engine(replay, WINDOW, device)
     table = eng.tables["http_events"]
@@ -6600,24 +6780,16 @@ def main() -> int:
     print(json.dumps({"phase": "append", "residency": True,
                       "ingest_sketches": False, "rows": ROWS, "secs": secs}))
 
-    kernels = [check_dense_fold(replay, device), check_hist_fold(replay, device)]
-    for k in kernels:
-        print(f"kernel {k['name']}: ms {k['ms']:.4f} (device "
-              f"{k['device_ms']}) plain_ms {k['plain_ms']:.4f} (device "
-              f"{k['plain_device_ms']}) library_ms {k['library_ms']:.4f} "
-              f"bound_ms {k['bound_ms']:.4f} max_abs_err {k['max_abs_err']} "
-              f"checked {len(k['checked'])} cases")
-        for sh in k["shapes"]:
-            print(f"  {k['name']} [{sh['label']}] slots {sh['slots']}: ms "
-                  f"{sh['ms']:.4f} device_ms {sh['device_ms']} bound_ms "
-                  f"{sh['bound_ms']:.4f} library_ms "
-                  f"{sh.get('library_ms', 'not measured')}")
+    # int_fold's launches are counted in the steady state alone; the
+    # other phases count the two kernels the JAX package has.
+    kernels = kernel_checks(replay, device)
+    int_k = kernels.pop()
 
     print(json.dumps({"batch_to_digest": profile_digest(replay, device)}))
 
     elapsed("kernel checks")
     launches = phase_steady_state(eng, expect)
-    for k in kernels:
+    for k in kernels + [int_k]:
         k["launches"] = launches[k["name"]]
     phase_attribution(eng, expect)
     phase_host_staged(replay, expect, device)
@@ -6729,7 +6901,7 @@ def main() -> int:
     print(json.dumps({"phase": "serving", "check": "ring_census",
                       **census.check()}))
     print(card)  # nvidia-smi's "name, power.limit" line, as it gave it
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + [int_k]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

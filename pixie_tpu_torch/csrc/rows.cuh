@@ -10,21 +10,42 @@ namespace rows {
 
 constexpr int kDepth = 2;
 
+// Four consecutive rows' values.
+template <typename T>
+struct Four {
+  T x, y, z, w;
+};
+
+// Four values from a 16-byte aligned address: one 16-byte load of f32,
+// two of int64.
+__device__ __forceinline__ Four<float> load4(const float* p) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  return {q.x, q.y, q.z, q.w};
+}
+
+__device__ __forceinline__ Four<long long> load4(const long long* p) {
+  const longlong2* q = reinterpret_cast<const longlong2*>(p);
+  const longlong2 a = __ldcg(q);
+  const longlong2 b = __ldcg(q + 1);
+  return {a.x, a.y, b.x, b.y};
+}
+
 // Calls fold(id, value) for every row of ids[0, n) and vals[0, n), spread
 // over `workers` threads of which the caller is number `worker` (worker %
-// 32 must be the caller's lane). Where both bases share their offset from
-// a 16-byte boundary, rows move as int4/float4 loads (four rows each),
-// kDepth per input and thread in flight before the first fold; the rows
-// before that boundary and the ragged tail go one at a time. Inputs whose
-// offsets differ (views such as ids[1:] beside vals[2:]) go one row at a
-// time throughout. A value is loaded only when wanted(id) holds for its
+// 32 must be the caller's lane). Where the values of the first row past
+// the ids' 16-byte boundary lie on one too, rows move four at a time (an
+// int4 of ids, 16 or 32 bytes of values: load4), kDepth per input and
+// thread in flight before the first fold; the rows before that boundary
+// and the ragged tail go one at a time. Inputs whose offsets differ
+// (views such as ids[1:] beside vals[2:] for f32) go one row at a time
+// throughout. A value is loaded only when wanted(id) holds for its
 // row or, in a 16-byte load, for one of its four rows; other rows arrive
 // with value 0, as do rows past the end (with id -1). Every lane of a
 // warp makes the same number of calls, so fold may use warp-wide
 // intrinsics on the full mask.
-template <typename Wanted, typename Fold>
+template <typename T, typename Wanted, typename Fold>
 __device__ __forceinline__ void for_each_row(const int* __restrict__ ids,
-                                             const float* __restrict__ vals,
+                                             const T* __restrict__ vals,
                                              long long n, long long worker,
                                              long long workers,
                                              Wanted&& wanted, Fold&& fold) {
@@ -32,20 +53,19 @@ __device__ __forceinline__ void for_each_row(const int* __restrict__ ids,
   const long long warp0 = worker - lane;
 
   const unsigned mis_i = (unsigned)((uintptr_t)ids & 15u);
-  const unsigned mis_v = (unsigned)((uintptr_t)vals & 15u);
+  const long long lead = (long long)(((16u - mis_i) & 15u) >> 2);
   long long head = 0, nvec = 0;
-  if (mis_i == mis_v) {
-    head = (long long)(((16u - mis_i) & 15u) >> 2);
-    if (head > n) head = n;
+  if (((uintptr_t)(vals + lead) & 15u) == 0u) {
+    head = lead < n ? lead : n;
     nvec = (n - head) >> 2;
   }
   const long long vec_end = head + 4 * nvec;
 
   const int4* ids4 = reinterpret_cast<const int4*>(ids + head);
-  const float4* vals4 = reinterpret_cast<const float4*>(vals + head);
+  const T* vals4 = vals + head;
   for (long long j0 = warp0 + lane; j0 - lane < nvec; j0 += kDepth * workers) {
     int4 id[kDepth];
-    float4 v[kDepth];
+    Four<T> v[kDepth];
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) {
       const long long j = j0 + d * workers;
@@ -56,8 +76,7 @@ __device__ __forceinline__ void for_each_row(const int* __restrict__ ids,
       const long long j = j0 + d * workers;
       const bool want = wanted(id[d].x) || wanted(id[d].y) ||
                         wanted(id[d].z) || wanted(id[d].w);
-      v[d] = j < nvec && want ? __ldcg(vals4 + j)
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[d] = j < nvec && want ? load4(vals4 + 4 * j) : Four<T>{};
     }
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) {
@@ -73,7 +92,7 @@ __device__ __forceinline__ void for_each_row(const int* __restrict__ ids,
   for (long long k0 = warp0; k0 < rest; k0 += workers) {
     const long long k = k0 + lane;
     int s = -1;
-    float v = 0.0f;
+    T v = T(0);
     if (k < rest) {
       const long long i = k < head ? k : vec_end + (k - head);
       s = ids[i];
@@ -85,9 +104,9 @@ __device__ __forceinline__ void for_each_row(const int* __restrict__ ids,
 
 // for_each_row over the whole grid, every value loaded: the wanted test is
 // a constant, so slots and values load together, unconditionally.
-template <typename Fold>
+template <typename T, typename Fold>
 __device__ __forceinline__ void for_each_row(const int* __restrict__ ids,
-                                             const float* __restrict__ vals,
+                                             const T* __restrict__ vals,
                                              long long n, Fold&& fold) {
   for_each_row(ids, vals, n,
                (long long)blockIdx.x * blockDim.x + threadIdx.x,

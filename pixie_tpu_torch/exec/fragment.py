@@ -38,6 +38,7 @@ from typing import Optional
 import torch
 
 from ..config import get_flag
+from ..ops import int_fold as int_fold_mod
 from ..ops.dense_fold import MAX_SLOTS, dense_fold
 from ..ops.groupby import (
     dense_group_ids,
@@ -63,7 +64,8 @@ from .plan import (
     MapOp,
 )
 
-# Integer-typed key columns that qualify for stats-derived dense domains.
+# Integer-typed key columns that qualify for stats-derived dense domains;
+# also the aggregate arguments the int fold kernel takes (int64 planes).
 _INT_KEY_TYPES = (DataType.INT64, DataType.TIME64NS)
 
 
@@ -90,6 +92,9 @@ class CompiledFragment:
     limit: Optional[int] = None  # host-enforced row cap
     # True when the aggregates fold through the dense_fold kernel.
     uses_dense_fold: bool = False
+    # True when they fold through the int_fold kernel instead (exact
+    # INT64/TIME64NS aggregates over dense keys).
+    uses_int_fold: bool = False
     # Per-group-col dense domain sizes (empty when the group ids come
     # from the sort/hash form): the packed key IS the group id.
     # ``dense_offsets`` shifts stats-derived integer keys to zero base,
@@ -669,14 +674,63 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
                 carries_w[ae.out_name] = cnt_shared.to(uda.init(g, device).dtype)
         return carries_w, cnt_shared > 0
 
+    # The int fold kernel (ops/int_fold.py) serves the dense group-bys
+    # that dense_fold does not and whose aggregates are count, or
+    # sum/mean/max/min of one INT64 or TIME64NS argument. Its int64
+    # count, sum, max and min are the UDAs' own carries, bit for bit.
+    uses_int_fold = (
+        not uses_dense_fold
+        and dense_domains is not None
+        and g <= int_fold_mod.MAX_SLOTS
+        and all(
+            ae.uda_name == "count"
+            or (
+                ae.uda_name in ("sum", "mean", "max", "min")
+                and len(arg_bound) == 1
+                and casts[0][1] in _INT_KEY_TYPES
+            )
+            for ae, _uda, arg_bound, casts in aggs_bound
+        )
+    )
+
+    def int_fold_carries(gids, cols, valid):
+        """Per-agg carries via int_fold; returns (carries, valid_w). One
+        kernel pass per distinct argument expression: count, mean and max
+        over the same column share a single sweep and its count. Some
+        aggregate has an argument (a count-only group-by takes
+        dense_fold)."""
+        need_min = any(ae.uda_name == "min" for ae, _u, _b, _c in aggs_bound)
+        folds: dict = {}
+        carries_w = {}
+        cnt = None
+        for ae, _uda, arg_bound, casts in aggs_bound:
+            if ae.uda_name == "count":
+                continue
+            fkey = (_struct_key(ae.args), casts[0])
+            if fkey not in folds:
+                a = apply_cast(arg_bound[0].fn(cols), *casts[0])
+                folds[fkey] = int_fold_mod.int_fold(
+                    gids, _full_plane(a, casts[0][1], valid).contiguous(), g,
+                    want_min=need_min,
+                )
+            cnt, s, mx, mn = folds[fkey]
+            carries_w[ae.out_name] = {
+                "sum": s, "mean": (s, cnt), "max": mx, "min": mn,
+            }[ae.uda_name]
+        for ae, _uda, _b, _c in aggs_bound:
+            if ae.uda_name == "count":
+                carries_w[ae.out_name] = cnt
+        return carries_w, cnt > 0
+
     def window_state(cols, valid):
         """Fold one window of rows into a fresh [G]-slot group state."""
         cols, valid = apply_pre(cols, _range_valid(cols, valid))
         if dense_domains is not None:
             gids, overflow = dense_slot_ids(cols, valid)
             keys_w, valid_w = (), None
-            if uses_dense_fold:
-                carries_w, valid_w = dense_fold_carries(gids, cols, valid)
+            if uses_dense_fold or uses_int_fold:
+                fold = dense_fold_carries if uses_dense_fold else int_fold_carries
+                carries_w, valid_w = fold(gids, cols, valid)
                 return {"keys": (), "valid": valid_w, "carries": carries_w,
                         "overflow": overflow}
         else:
@@ -823,6 +877,7 @@ def _compile_agg(agg: AggOp, post, limit, apply_pre, rel1, dicts1, registry,
         finalize=finalize,
         limit=limit,
         uses_dense_fold=uses_dense_fold,
+        uses_int_fold=uses_int_fold,
         dense_domains=dense_domains or (),
         dense_offsets=dense_offsets or (),
         dense_strides=dense_strides or (),

@@ -28,7 +28,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("dense_fold", "hist_fold")
+KERNELS = ("dense_fold", "hist_fold", "int_fold")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -29,6 +29,7 @@ from pixie_tpu.types.dtypes import DataType as JaxDataType
 from pixie_tpu.types.relation import Relation as JaxRelation
 from pixie_tpu.types.strings import StringDictionary as JaxDictionary
 from pixie_tpu_torch import Engine
+from pixie_tpu_torch.config import override_flag
 from pixie_tpu_torch.scripts import load_script
 from pixie_tpu_torch.types import host_batch_from_numpy
 
@@ -138,6 +139,7 @@ def test_http_stats(engines):
         engines, load_script("px/http_stats").pxl, ["service", "req_path"]
     )
     assert not frag.uses_dense_fold  # INT64 aggregates: exact i64 folds
+    assert frag.uses_int_fold  # count, mean and max in one int64 pass
     assert len(got["n"]) == 32 * 8
     np.testing.assert_array_equal(got["n"], ref["n"])
     np.testing.assert_array_equal(got["lat_mean"], ref["lat_mean"])
@@ -150,6 +152,7 @@ def test_http_stats_float64(engines):
         pallas_dense_fold="interpret",
     )
     assert frag.uses_dense_fold  # the route the JAX package's Pallas fold takes
+    assert not frag.uses_int_fold
     np.testing.assert_array_equal(got["n"], ref["n"])
     np.testing.assert_allclose(got["lat_mean"], ref["lat_mean"], rtol=1e-5)
     np.testing.assert_allclose(got["lat_max"], ref["lat_max"],
@@ -172,6 +175,7 @@ def test_service_stats(engines):
         pallas_tdigest="interpret",
     )
     assert not frag.uses_dense_fold
+    assert not frag.uses_int_fold  # t-digest and boolean aggregates
     assert len(got["throughput"]) == 32
     np.testing.assert_array_equal(got["throughput"], ref["throughput"])
     np.testing.assert_allclose(got["error_rate"], ref["error_rate"], rtol=1e-12)
@@ -190,7 +194,8 @@ def test_time_bounded_scan(engines):
         "lo=('latency_ns', px.min))\n"
         "px.display(df)\n"
     )
-    got, ref, _frag = _run_both(engines, query, ["service"])
+    got, ref, frag = _run_both(engines, query, ["service"])
+    assert frag.uses_int_fold  # count and an INT64 min
     assert got["n"].sum() == 5000
     np.testing.assert_array_equal(got["n"], ref["n"])
     np.testing.assert_array_equal(got["lo"], ref["lo"])
@@ -207,7 +212,47 @@ def test_integer_key_group_by(engines):
         "hi=('latency_ns', px.max), s=('latency_ns', px.sum))\n"
         "px.display(df)\n"
     )
-    got, ref, _frag = _run_both(engines, query, ["code"])
+    got, ref, frag = _run_both(engines, query, ["code"])
+    # Stats bounds round out to a 4096-value grain: a domain above the
+    # int fold kernel's 2048 slots keeps the UDAs' own updates.
+    assert frag.dense_domains == (4096,) and not frag.uses_int_fold
     assert list(got["code"]) == [201, 405, 501]
     for col in ("n", "hi", "s"):
+        np.testing.assert_array_equal(got[col], ref[col])
+
+
+MIXED_STATS = """import px
+df = px.DataFrame(table='http_events')
+df = df[df.resp_status < 400]
+df.latency_ms = df.latency_ns / 1000000.0
+df = df.groupby(['service', 'req_path']).agg(
+    n=('latency_ns', px.count), total=('latency_ns', px.sum),
+    lat_max=('latency_ms', px.max))
+px.display(df)
+"""
+
+
+def test_mixed_float64_and_int64_aggregates_take_neither_kernel(engines):
+    """A FLOAT64 max beside an INT64 sum: neither fold kernel takes the
+    group-by, and it stays on the UDAs' own updates."""
+    got, ref, frag = _run_both(engines, MIXED_STATS, ["service", "req_path"])
+    assert not frag.uses_dense_fold and not frag.uses_int_fold
+    np.testing.assert_array_equal(got["n"], ref["n"])
+    np.testing.assert_array_equal(got["total"], ref["total"])
+    np.testing.assert_allclose(got["lat_max"], ref["lat_max"],
+                               rtol=np.finfo(np.float32).eps, atol=0)
+
+
+def test_keys_without_dense_domain_take_neither_kernel(engines):
+    """With no dense domain for the keys (the port's domain limits at 0),
+    px/http_stats groups through the sort/hash form, off both kernels,
+    and still equals the JAX package's dense answer."""
+    with override_flag("dense_domain_limit", 0), \
+            override_flag("int_dense_domain_limit", 0):
+        got, ref, frag = _run_both(
+            engines, load_script("px/http_stats").pxl, ["service", "req_path"]
+        )
+    assert not frag.uses_dense_fold and not frag.uses_int_fold
+    assert not frag.dense_domains
+    for col in ("n", "lat_mean", "lat_max"):
         np.testing.assert_array_equal(got[col], ref[col])

@@ -378,7 +378,7 @@ def _compare(engines, query, keys, exact, close=(), max_groups=128,
 
 
 def _no_dense_fragment(stats):
-    assert all(f.is_agg is False or not f.uses_dense_fold
+    assert all(f.is_agg is False or not (f.uses_dense_fold or f.uses_int_fold)
                for f in stats.fragments)
 
 
@@ -407,6 +407,11 @@ def test_upid_scripts_match_jax(engines, form, script, keys, exact, close):
     if script != "px/pods":
         assert (stats.rebuckets == rungs) if form == "sort" else (
             stats.rebuckets >= rungs)
+    # UINT128 upid keys have no dense domain; px/pods' second group-by,
+    # by pod, folds its INT64 aggregates through int_fold.
+    assert [f.uses_int_fold for f in stats.fragments if f.is_agg][-1] == (
+        script == "px/pods")
+    assert not any(f.uses_int_fold for f in stats.fragments[:-1])
 
 
 WHOLE_TABLE = """import px

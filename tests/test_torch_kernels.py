@@ -26,6 +26,7 @@ from pixie_tpu.ops.pallas_groupby import dense_group_fold
 from pixie_tpu.ops.pallas_tdigest import hist_fold as jax_hist_fold
 from pixie_tpu_torch.ops import dense_fold as dense_fold_mod
 from pixie_tpu_torch.ops import hist_fold as hist_fold_mod
+from pixie_tpu_torch.ops import int_fold as int_fold_mod
 from pixie_tpu_torch.ops import tdigest
 from pixie_tpu_torch.ops.dense_fold import dense_fold, dense_fold_reference
 from pixie_tpu_torch.ops.hist_fold import hist_fold, hist_fold_reference
@@ -370,6 +371,7 @@ def _enum(src: str, first: str) -> list:
 
 @pytest.mark.parametrize("name,module", [
     ("dense_fold", dense_fold_mod), ("hist_fold", hist_fold_mod),
+    ("int_fold", int_fold_mod),
 ])
 def test_c_interfaces_match_wrappers(name, module):
     """Each ``extern "C"`` function of ``csrc/<name>.cu`` has a signature
@@ -399,6 +401,19 @@ def test_c_constants_match_wrappers():
     assert rest.tolist() == [0, 0, int(order[0]), int(order[1]), 0, 0]
     assert f"0x{int(order[0]):08X}u" in dense
     assert f"0x{int(order[1]):08X}u" in dense
+
+
+def test_int_fold_constants_match_wrapper():
+    """The slot limit and workspace layout that ``int_fold`` and its
+    kernel share: count | sum | max | min at rest 0, 0, INT64_MIN,
+    INT64_MAX."""
+    src = (CSRC / "int_fold.cu").read_text()
+    assert _constexpr(src, "kMaxSlots") == int_fold_mod.MAX_SLOTS
+    assert _enum(src, "kCnt") == ["kCnt", "kSum", "kMax", "kMin",
+                                  "kWsArrays"]
+    info = np.iinfo(np.int64)
+    assert int_fold_mod._WS_REST == (0, 0, info.min, info.max)
+    assert "k == kMax ? LLONG_MIN : k == kMin ? LLONG_MAX : 0LL" in src
 
 
 
